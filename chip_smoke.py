@@ -1,21 +1,36 @@
-"""Smoke run of sqlrs_tpu_torch on one NVIDIA GPU: build, kernel check, and
-TPC-H Q1/Q6 at scale factor 1 through `Database(device="cuda").run`.
+"""Smoke run of sqlrs_tpu_torch on one NVIDIA GPU: build, kernel checks,
+TPC-H Q1/Q6 at scale factor 1, and the star rollup at bench.py's size, all
+through `Database(device="cuda").run`.
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
-  1. build    — nvcc builds every kernel of the path from sqlrs_tpu_torch/csrc/
-                into build/kernels/ (the time includes nvcc).
-  2. kernel   — each kernel against its plain PyTorch version on the card, on
-                inputs made from a seed with numpy, at small and ragged
-                shapes and at the row count of the SF1 table; integer results
-                must be equal bit for bit (tolerance 0). Times are medians of
-                CUDA-event timings at the shape TPC-H Q1 gives the kernel.
-  3. tpch_sf1 — lineitem's Q1/Q6 columns at SF1 (about 6.0M rows, made with
-                numpy by the TPC-H rules), loaded into the port and queried:
-                one cold run, three warm runs. Results are checked against a
-                numpy oracle (counts and sum_qty exactly, other values to
-                rel 1e-9), and Q1 must have gone through the kernel.
+Phases, each printing one line or a few:
+  1. build       — nvcc builds every kernel source in sqlrs_tpu_torch/csrc/
+                   into build/kernels/, one nvcc process for each source, all
+                   started together (the times include nvcc).
+  2. kernel      — each kernel against its plain PyTorch version on the card,
+                   on inputs made from a seed with numpy, at small and ragged
+                   shapes and at the shapes of the main path; integer results
+                   must be equal bit for bit (tolerance 0). Times are medians
+                   of CUDA-event timings at the main path's shapes: Q1's for
+                   grouped_histogram, the star rollup's for dense_group_sums
+                   (2^25 rows, 2^16 groups), and the star rollup's rank stage
+                   for row_rank_ge / masked_row_sum (the sorted pack32 array
+                   as (2^18, 128) blocks, 2^16 + 1 boundary queries).
+  3. tpch_sf1    — lineitem's Q1/Q6 columns at SF1 (about 6.0M rows, made
+                   with numpy by the TPC-H rules), loaded into the port and
+                   queried: one cold run, three warm runs. Results are
+                   checked against a numpy oracle (counts and sum_qty
+                   exactly, other values to rel 1e-9), and Q1 must have gone
+                   through grouped_histogram.
+  4. star_rollup — bench.py's star schema: fact f(k, v) of 2^25 rows with
+                   zipf(1.2) keys into a dim d(k) of 2^16 keys, dense or
+                   spread, and the TPC-H SF1 rollup of lineitem ⋈ orders by
+                   order key. Each query: one cold run, three warm runs, the
+                   route it logs, and its rows against a numpy oracle,
+                   exactly (revenue bit for bit against the integer-cents sum
+                   / 10^4). The dense ORDER BY query must have gone through
+                   dense_group_sums once per run.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -36,6 +51,9 @@ SEED = 20260101
 SF1_ORDERS = 1_500_000
 SF1_PARTS = 200_000
 CURRENTDATE = "1995-06-17"
+STAR_ROWS = 1 << 25     # bench.py's fact table
+STAR_GROUPS = 1 << 16   # and its dim table
+KERNEL_SOURCES = ("mxu_grouped", "mxu_agg", "pallas_kernels")
 
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -57,6 +75,23 @@ where l_shipdate >= date '1994-01-01'
   and l_shipdate < date '1995-01-01'
   and l_discount between 0.05 and 0.07
   and l_quantity < 24
+"""
+
+
+STAR_SQL = {
+    "dense_order": ("select d.k, sum(f.v), count(*) from f join d on f.k = d.k "
+                    "group by d.k order by d.k", "order_agg_join_direct_dense_mxu"),
+    "dense_firstapp": ("select d.k, sum(f.v), count(*) from f join d on f.k = d.k "
+                       "group by d.k", "agg_join_firstapp_dense"),
+    "spread_order": ("select ds.k, sum(fs.v), count(*) from fs join ds on fs.k = ds.k "
+                     "group by ds.k order by ds.k", "order_agg_join_direct"),
+}
+
+ROLLUP_SQL = """
+select o_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue
+from lineitem join orders on l_orderkey = o_orderkey
+group by o_orderkey
+order by o_orderkey
 """
 
 
@@ -166,12 +201,164 @@ def phase_kernel(dev, card: str, n_main: int) -> dict:
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
+def dense_inputs(rng, n: int, G: int, hi: int, dev, saturate: bool = False):
+    """gid with misses below (-1, INT32_MIN) and above (G) the domain,
+    values below hi (or all 2^24 - 1)."""
+    gid = rng.integers(0, G, n, dtype=np.int32)
+    gid[::9] = -1
+    gid[4::11] = G
+    gid[7::13] = np.iinfo(np.int32).min
+    if saturate:
+        vals = np.full(n, (1 << 24) - 1, np.int32)
+    else:
+        vals = rng.integers(0, hi, n, dtype=np.int32)
+    return torch.from_numpy(gid).to(dev), torch.from_numpy(vals).to(dev)
+
+
+def phase_dense_kernel(dev, card: str, star: dict) -> dict:
+    """dense_group_sums against its plain version, then timed at the star
+    rollup's shape (the bench's zipf keys as gids, its values)."""
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums, dense_group_sums_plain
+
+    rng = np.random.default_rng(SEED + 1)
+    max_err, cases = 0, 0
+
+    def check(gid, vals, G, what):
+        nonlocal max_err, cases
+        sk, ck = dense_group_sums(gid, vals, G)
+        sp, cp = dense_group_sums_plain(gid, vals, G)
+        torch.cuda.synchronize()
+        if not (torch.equal(sk, sp) and torch.equal(ck, cp)):
+            raise AssertionError(f"dense_group_sums != plain at {what}")
+        max_err = max(max_err, int((sk - sp).abs().max()), int((ck - cp).abs().max()))
+        cases += 1
+        return sk, ck
+
+    for n in (1, 2047, 2049, STAR_ROWS):
+        for G in (1, 256, 4097, STAR_GROUPS):
+            for hi in (1 << 7, 1 << 24):
+                gid, vals = dense_inputs(rng, n, G, hi, dev)
+                check(gid, vals, G, f"n={n} G={G} values<{hi}")
+    gid, vals = dense_inputs(rng, 100_003, STAR_GROUPS, 0, dev, saturate=True)
+    check(gid, vals, STAR_GROUPS, "every value 2^24 - 1")
+    gid = torch.full((70_001,), -1, dtype=torch.int32, device=dev)
+    sk, ck = check(gid, vals[:70_001], STAR_GROUPS, "every row a miss")
+    if int(ck.sum()) != 0 or int(sk.abs().sum()) != 0:
+        raise AssertionError("all-miss input gave nonzero totals")
+
+    gid = torch.from_numpy(star["gid"].astype(np.int32)).to(dev)
+    vals = torch.from_numpy(star["v"].astype(np.int32)).to(dev)
+    ms = cuda_ms(lambda: dense_group_sums(gid, vals, STAR_GROUPS), 20)
+    plain_ms = cuda_ms(lambda: dense_group_sums_plain(gid, vals, STAR_GROUPS), 20)
+    gb = STAR_ROWS * 8 / 1e9
+    print(
+        f"phase kernel: dense_group_sums == plain bit for bit in {cases} cases; at "
+        f"the star rollup's shape (n={STAR_ROWS}, G={STAR_GROUPS}, zipf keys): "
+        f"kernel {ms:.3f} ms ({gb / (ms / 1e3):.0f} GB/s of input, read "
+        f"{-(-STAR_GROUPS // 8192)} times), plain {plain_ms:.3f} ms [{card}]",
+        flush=True,
+    )
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def rank_inputs(rng, nq: int, dev):
+    nb = 64
+    sp2d = np.sort(rng.integers(-50_000, 50_000, nb * 128).astype(np.int32)).reshape(nb, 128)
+    b = rng.integers(0, nb, nq).astype(np.int32)
+    q = rng.integers(-60_000, 60_000, nq).astype(np.int32)
+    q[::4] = sp2d[b[::4], 64]
+    rem = rng.integers(0, 129, nq).astype(np.int32)
+    rem[::3] = 0
+    rem[1::3] = 128
+    v2d = rng.integers(-(1 << 31), (1 << 31) - 1, (nb, 128)).astype(np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (sp2d, v2d, b, q, rem)]
+
+
+def phase_rank_kernels(dev, card: str, star: dict) -> dict:
+    """row_rank_ge and masked_row_sum against their plain versions at ragged
+    query counts and at the star rollup's rank stage: the sorted pack32
+    array (k << 7 | v) as (2^18, 128) blocks and the 2^16 + 1 dense
+    boundary queries d << 7, with the block of each query as the stage
+    finds it (the block minima below it) and its in-block position."""
+    from sqlrs_tpu_torch.ops.pallas_kernels import (
+        masked_row_sum,
+        masked_row_sum_plain,
+        row_rank_ge,
+        row_rank_ge_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    max_err, cases = 0, 0
+
+    def check(sp2d, v2d, b, q, rem, what):
+        nonlocal max_err, cases
+        rk, rp = row_rank_ge(sp2d, b, q), row_rank_ge_plain(sp2d, b, q)
+        mk, mp = masked_row_sum(v2d, b, rem), masked_row_sum_plain(v2d, b, rem)
+        torch.cuda.synchronize()
+        if not (torch.equal(rk, rp) and torch.equal(mk, mp)):
+            raise AssertionError(f"rank-stage kernels != plain at {what}")
+        max_err = max(max_err, int((rk - rp).abs().max()), int((mk - mp).abs().max()))
+        cases += 1
+        return rk, mk
+
+    for nq in (1, 31, 33, 1000, 65537):
+        check(*rank_inputs(rng, nq, dev), what=f"nq={nq}")
+
+    vb = 7
+    packed = (torch.from_numpy(star["gid"].astype(np.int32)).to(dev) << vb) | torch.from_numpy(
+        star["v"].astype(np.int32)).to(dev)
+    sp = torch.sort(packed).values
+    nb = sp.shape[0] // 128
+    sp2d = sp.view(nb, 128)
+    q = torch.arange(STAR_GROUPS + 1, dtype=torch.int32, device=dev) << vb
+    c = torch.searchsorted(sp2d[:, 0].contiguous(), q, side="left")
+    b_rank = torch.clamp(c - 1, 0, nb - 1).to(torch.int32)
+    ranks = torch.searchsorted(sp, q, side="left")
+    b_sum = torch.clamp(ranks // 128, 0, nb - 1).to(torch.int32)
+    rem = (ranks % 128).to(torch.int32)
+    v2d = sp2d & ((1 << vb) - 1)
+    rk, _ = check(sp2d, v2d, b_rank, q, rem, "the rank stage's shape (rank blocks)")
+    _, mk = check(sp2d, v2d, b_sum, q, rem, "the rank stage's shape (prefix blocks)")
+    # the in-block steps recompose the stage's answers: the rank of each
+    # boundary, and the value prefix sum below it
+    n = sp.shape[0]
+    rank_left = torch.where(c == 0, 0, n - ((nb - c) * 128 + rk.to(torch.int64)))
+    if not torch.equal(rank_left, ranks):
+        raise AssertionError("row_rank_ge does not recompose searchsorted")
+    block_prefix = torch.cumsum(v2d.sum(1, dtype=torch.int64), 0) - v2d.sum(1, dtype=torch.int64)
+    prefix = torch.where(ranks >= n, v2d.sum(dtype=torch.int64),
+                         block_prefix[b_sum.long()] + mk.to(torch.int64))
+    full = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum((sp & ((1 << vb) - 1)).to(torch.int64), 0)])
+    if not torch.equal(prefix, full[ranks]):
+        raise AssertionError("masked_row_sum does not recompose the value prefix sums")
+
+    times = {
+        "row_rank_ge": cuda_ms(lambda: row_rank_ge(sp2d, b_rank, q), 20),
+        "row_rank_ge_plain": cuda_ms(lambda: row_rank_ge_plain(sp2d, b_rank, q), 20),
+        "masked_row_sum": cuda_ms(lambda: masked_row_sum(v2d, b_sum, rem), 20),
+        "masked_row_sum_plain": cuda_ms(lambda: masked_row_sum_plain(v2d, b_sum, rem), 20),
+    }
+    print(
+        f"phase kernel: row_rank_ge and masked_row_sum == plain bit for bit in "
+        f"{cases} cases each, and recompose the rank stage's ranks and prefix "
+        f"sums; at the rank stage's shape (sp2d ({nb}, 128), {q.shape[0]} "
+        f"queries): row_rank_ge {times['row_rank_ge']:.3f} ms, plain "
+        f"{times['row_rank_ge_plain']:.3f} ms; masked_row_sum "
+        f"{times['masked_row_sum']:.3f} ms, plain "
+        f"{times['masked_row_sum_plain']:.3f} ms [{card}]",
+        flush=True,
+    )
+    return {"max_abs_err": max_err, **times}
+
+
 # ---- phase 3: TPC-H Q1/Q6 at SF1 -------------------------------------------
 
 
 def gen_lineitem(seed: int):
-    """lineitem's Q1/Q6 columns at SF1 by the TPC-H rules (spec §4.2.3), as
-    benchmarks/tpch_dbgen.py applies them: 1-7 lines per order, quantity
+    """lineitem's Q1/Q6 columns and its order key, and orders' key, at SF1
+    by the TPC-H rules (spec §4.2.3), as benchmarks/tpch_dbgen.py applies
+    them: sparse order keys (8 of every 32), 1-7 lines per order, quantity
     1-50, discount 0.00-0.10, tax 0.00-0.08, extendedprice = quantity x
     p_retailprice, ship date 1-121 days after the order date, receipt date
     1-30 days after shipping, returnflag R/A if received by CURRENTDATE else
@@ -180,6 +367,8 @@ def gen_lineitem(seed: int):
 
     rng = np.random.default_rng(seed)
     O, P = SF1_ORDERS, SF1_PARTS
+    oi = np.arange(O, dtype=np.int64)
+    o_key = (oi >> 3) * 32 + (oi & 7) + 1  # sparse: 8 of every 32 keys
     o_date = rng.integers(
         date_str_to_days("1992-01-01"), date_str_to_days("1998-08-02") + 1, O
     )
@@ -197,7 +386,8 @@ def gen_lineitem(seed: int):
     cur = date_str_to_days(CURRENTDATE)
     rflag = np.where(receipt <= cur, np.where(rng.random(L) < 0.5, "R", "A"), "N")
     lstatus = np.where(ship > cur, "O", "F")
-    return {
+    lineitem = {
+        "l_orderkey": np.repeat(o_key, per_order),
         "l_quantity": qty.astype(np.int64),
         "l_extendedprice": price,
         "l_discount": disc,
@@ -206,6 +396,7 @@ def gen_lineitem(seed: int):
         "l_linestatus": lstatus,
         "l_shipdate": ship.astype(np.int32),
     }
+    return lineitem, {"o_orderkey": o_key}
 
 
 def oracle_q1(li):
@@ -271,7 +462,9 @@ def timed_query(db, sql: str):
     return rows, ms
 
 
-def phase_tpch(dev, card: str, li: dict, gen_s: float) -> int:
+def phase_tpch(dev, card: str, li: dict, orders: dict, gen_s: float):
+    """Returns (grouped_histogram launches in the Q1/Q6 runs, the database,
+    which also holds orders for the star phase's rollup)."""
     import sqlrs_tpu_torch
     from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
     from sqlrs_tpu_torch.types import LogicalType as LT
@@ -279,6 +472,7 @@ def phase_tpch(dev, card: str, li: dict, gen_s: float) -> int:
     t0 = time.perf_counter()
     n = len(li["l_quantity"])
     types = {
+        "l_orderkey": LT.BIGINT,
         "l_quantity": LT.BIGINT, "l_extendedprice": LT.DOUBLE,
         "l_discount": LT.DOUBLE, "l_tax": LT.DOUBLE,
         "l_returnflag": LT.VARCHAR, "l_linestatus": LT.VARCHAR,
@@ -288,6 +482,7 @@ def phase_tpch(dev, card: str, li: dict, gen_s: float) -> int:
     db.create_memory_table_numpy(
         "lineitem", [(c, types[c]) for c in li], [li[c] for c in li]
     )
+    db.create_memory_table_numpy("orders", [("o_orderkey", LT.BIGINT)], [orders["o_orderkey"]])
     load_s = time.perf_counter() - t0
     exp1, exp6 = oracle_q1(li), oracle_q6(li)
 
@@ -319,7 +514,151 @@ def phase_tpch(dev, card: str, li: dict, gen_s: float) -> int:
         f"peak device memory {peak_gb:.2f} GB [{card}]",
         flush=True,
     )
+    return launches, db
+
+
+# ---- phase 4: the star rollup ---------------------------------------------
+
+
+def gen_star(seed: int = 0) -> dict:
+    """bench.py's fact table: gid = min(zipf(1.2), 2^16) - 1 and v uniform
+    in [0, 100), numpy seed 0 as bench.py draws them."""
+    rng = np.random.default_rng(seed)
+    gid = np.minimum(rng.zipf(1.2, STAR_ROWS), STAR_GROUPS).astype(np.int64) - 1
+    v = rng.integers(0, 100, STAR_ROWS).astype(np.int64)
+    return {"gid": gid, "v": v}
+
+
+def batch_arrays(batches):
+    """(data, valid) numpy arrays per column of a one-batch result."""
+    (b,) = batches
+    return [(c.data.cpu().numpy(), c.valid.cpu().numpy()) for c in b.columns]
+
+
+def check_columns(got, exp, name: str) -> None:
+    """Every column valid and equal to the oracle, bit for bit."""
+    if len(got) != len(exp):
+        raise AssertionError(f"{name}: {len(got)} columns, expected {len(exp)}")
+    for j, ((data, valid), e) in enumerate(zip(got, exp)):
+        if data.shape != e.shape or data.dtype != e.dtype or not valid.all():
+            raise AssertionError(
+                f"{name} col {j}: {data.dtype}{data.shape} (all valid: {valid.all()}), "
+                f"expected {e.dtype}{e.shape}"
+            )
+        if not np.array_equal(data.view(np.int64), e.view(np.int64)):
+            bad = int(np.flatnonzero(data != e)[0])
+            raise AssertionError(f"{name} col {j} row {bad}: {data[bad]!r} != {e[bad]!r}")
+
+
+def run_query(db, sql: str, route: str, exp, name: str, runs: list) -> None:
+    """One run: time db.run to a synchronised device, then check the route
+    and every value against the oracle."""
+    db.last_fused_routes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = db.run(sql)
+    torch.cuda.synchronize()
+    runs.append((time.perf_counter() - t0) * 1e3)
+    if db.last_fused_routes != [route]:
+        raise AssertionError(f"{name} logged {db.last_fused_routes}, expected [{route!r}]")
+    check_columns(batch_arrays(batches), exp, name)
+
+
+def phase_star(dev, card: str, star: dict, tpch_db, li: dict, orders: dict) -> dict:
+    """Returns each kernel's launches in the star queries' runs."""
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.ops import pallas_kernels
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums
+    from sqlrs_tpu_torch.types import LogicalType as LT
+
+    gid, v = star["gid"], star["v"]
+    dense_keys = np.arange(STAR_GROUPS, dtype=np.int64)
+    spread_keys = dense_keys * 1013904223 + 12345
+    sums = np.bincount(gid, weights=v, minlength=STAR_GROUPS).astype(np.int64)
+    counts = np.bincount(gid, minlength=STAR_GROUPS).astype(np.int64)
+    live = counts > 0
+    exp_dense = [dense_keys[live], sums[live], counts[live]]
+    exp_spread = [spread_keys[live], sums[live], counts[live]]
+
+    t0 = time.perf_counter()
+    db = sqlrs_tpu_torch.Database(device=dev)
+    db.create_memory_table_numpy("f", [("k", LT.BIGINT), ("v", LT.BIGINT)], [dense_keys[gid], v])
+    db.create_memory_table_numpy("d", [("k", LT.BIGINT)], [dense_keys])
+    db.create_memory_table_numpy("fs", [("k", LT.BIGINT), ("v", LT.BIGINT)], [spread_keys[gid], v])
+    db.create_memory_table_numpy("ds", [("k", LT.BIGINT)], [spread_keys])
+    load_s = time.perf_counter() - t0
+
+    # the rollup's oracle: integer cents, price_cents * (100 - disc_cents)
+    # per line, summed per order (lines of one order are adjacent), / 10^4
+    cents = np.round(li["l_extendedprice"] * 100).astype(np.int64) * (
+        100 - np.round(li["l_discount"] * 100).astype(np.int64))
+    starts = np.flatnonzero(np.r_[True, li["l_orderkey"][1:] != li["l_orderkey"][:-1]])
+    exact = np.add.reduceat(cents, starts)
+    if len(exact) != len(orders["o_orderkey"]):
+        raise AssertionError("an order without lines")
+    exp_rollup = [orders["o_orderkey"], exact.astype(np.float64) / 1e4]
+
+    # the main path: counts from here on are the path's own launches
+    torch.cuda.reset_peak_memory_stats(dev)
+    dense_group_sums.launches = 0
+    pallas_kernels.row_rank_ge.launches = 0
+    pallas_kernels.masked_row_sum.launches = 0
+    times: dict[str, list[float]] = {}
+    for name, (sql, route) in STAR_SQL.items():
+        exp = exp_spread if name.startswith("spread") else exp_dense
+        for i in range(4):  # one cold run, then three warm runs
+            before = dense_group_sums.launches
+            run_query(db, sql, route, exp, name, times.setdefault(name, []))
+            if name == "dense_order" and dense_group_sums.launches != before + 1:
+                raise AssertionError(f"run {i} of {name} did not launch dense_group_sums once")
+    for _ in range(4):
+        run_query(tpch_db, ROLLUP_SQL, "order_agg_join_direct", exp_rollup,
+                  "tpch_rollup", times.setdefault("tpch_rollup", []))
+    launches = {
+        "dense_group_sums": dense_group_sums.launches,
+        "row_rank_ge": pallas_kernels.row_rank_ge.launches,
+        "masked_row_sum": pallas_kernels.masked_row_sum.launches,
+    }
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(
+        f"phase star_rollup: fact {STAR_ROWS} rows x dim {STAR_GROUPS} keys "
+        f"({int(live.sum())} groups hit; loaded in {load_s:.1f} s), lineitem "
+        f"{len(li['l_orderkey'])} x orders {len(orders['o_orderkey'])} rows",
+        flush=True,
+    )
+    for name, ts in times.items():
+        route = STAR_SQL[name][1] if name in STAR_SQL else "order_agg_join_direct"
+        print(
+            f"  {name}: route {route}; cold {ts[0]:.1f} ms, warm "
+            f"{', '.join(f'{t:.1f}' for t in ts[1:])} ms; rows match the numpy "
+            f"oracle exactly",
+            flush=True,
+        )
+    print(
+        f"  launches: dense_group_sums {launches['dense_group_sums']} (4 dense "
+        f"ORDER BY runs); row_rank_ge {launches['row_rank_ge']}, masked_row_sum "
+        f"{launches['masked_row_sum']} (no production path calls them, as in "
+        f"the reference); peak device memory {peak_gb:.2f} GB [{card}]",
+        flush=True,
+    )
     return launches
+
+
+def build_all() -> None:
+    """Build every kernel source at once: one nvcc process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sqlrs_tpu_torch.utils.cuda_build import BUILD_INFO, load_kernel_library
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(load_kernel_library, KERNEL_SOURCES))
+    print(f"phase build: {len(KERNEL_SOURCES)} sources in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name in KERNEL_SOURCES:
+        info = BUILD_INFO[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln]
+        print(f"  {name}.cu: nvcc {info['seconds']:.2f} s; {' | '.join(ptxas)}", flush=True)
 
 
 def main() -> int:
@@ -327,40 +666,43 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import sqlrs_tpu_torch  # noqa: F401  (fails outside the repository)
-    from sqlrs_tpu_torch.utils.cuda_build import BUILD_INFO, load_kernel_library
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}", flush=True)
+    build_all()
 
     t0 = time.perf_counter()
-    load_kernel_library("mxu_grouped")
-    info = BUILD_INFO["mxu_grouped"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln]
-    print(
-        f"phase build: mxu_grouped.cu in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s); {' | '.join(ptxas)}",
-        flush=True,
-    )
-
-    t0 = time.perf_counter()
-    li = gen_lineitem(SEED)
+    li, orders = gen_lineitem(SEED)
     gen_s = time.perf_counter() - t0
-    k = phase_kernel(dev, card, len(li["l_quantity"]))
-    launches = phase_tpch(dev, card, li, gen_s)
+    star = gen_star()
+    k1 = phase_kernel(dev, card, len(li["l_quantity"]))
+    k2 = phase_dense_kernel(dev, card, star)
+    k34 = phase_rank_kernels(dev, card, star)
+    hist_launches, tpch_db = phase_tpch(dev, card, li, orders, gen_s)
+    launches = phase_star(dev, card, star, tpch_db, li, orders)
 
-    print(json.dumps({"kernels": [{
-        "name": "grouped_histogram",
-        "route": "cuda",
-        "source": "sqlrs_tpu_torch/csrc/mxu_grouped.cu",
-        "replaces": "sqlrs_tpu/ops/mxu_grouped.py:154",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-    }]}), flush=True)
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"sqlrs_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
+
+    print(json.dumps({"kernels": [
+        entry("grouped_histogram", "mxu_grouped.cu", "sqlrs_tpu/ops/mxu_grouped.py:154",
+              hist_launches, k1["max_abs_err"], k1["ms"], k1["plain_ms"]),
+        entry("dense_group_sums", "mxu_agg.cu", "sqlrs_tpu/ops/mxu_agg.py:64",
+              launches["dense_group_sums"], k2["max_abs_err"], k2["ms"], k2["plain_ms"]),
+        # no production path calls these two, as in the reference: their
+        # count over the star rollup's runs stays 0
+        entry("row_rank_ge", "pallas_kernels.cu", "sqlrs_tpu/ops/pallas_kernels.py:57",
+              launches["row_rank_ge"], k34["max_abs_err"], k34["row_rank_ge"],
+              k34["row_rank_ge_plain"]),
+        entry("masked_row_sum", "pallas_kernels.cu", "sqlrs_tpu/ops/pallas_kernels.py:140",
+              launches["masked_row_sum"], k34["max_abs_err"], k34["masked_row_sum"],
+              k34["masked_row_sum_plain"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -7,18 +7,17 @@ src/executor/order.rs:14, hash_join.rs:187, hash_agg.rs:32). Operators are
 eager torch code on the session's device; grouping and sort dispatch to
 sqlrs_tpu_torch/ops/.
 
-This is the first slice of the port of sqlrs_tpu/exec/executor.py: scans,
-projection, filter, limit, order, ungrouped aggregates, the GROUP BY path of
-ops/mxu_grouped.py, and DDL/DML/explain. An operator or path that is not
-ported yet raises ExecutorError naming it; nothing falls back to another
-path.
+The port of sqlrs_tpu/exec/executor.py so far: scans, projection, filter,
+limit, order, ungrouped aggregates, the GROUP BY path of ops/mxu_grouped.py,
+the fused star-rollup route (exec/fused_route.py) in front of ORDER BY and
+GROUP BY, and DDL/DML/explain. An operator or path that is not ported yet
+raises ExecutorError naming it; nothing falls back to another path.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sqlrs_tpu_torch.binder.expression import BoundReference
 from sqlrs_tpu_torch.data import Column, DeviceBatch, Schema, SchemaField
 from sqlrs_tpu_torch.data.batch import torch_dtype_for
 from sqlrs_tpu_torch.errors import ExecutorError
@@ -41,8 +40,17 @@ class Executor:
     def __init__(self, db) -> None:
         self.db = db
         self.device = db.device
+        # child batches that a bailed fused-route attempt already executed
+        # (exec/fused_route.py), keyed by id(operator)
+        self._route_cache: dict[int, DeviceBatch] = {}
 
     def execute(self, op: P.PhysicalOperator) -> DeviceBatch:
+        # one-shot reuse of a route's stashed batch, popped on hit, so that
+        # no subtree runs twice and no batch outlives its single consumer
+        if self._route_cache:
+            hit = self._route_cache.pop(id(op), None)
+            if hit is not None:
+                return hit
         method = getattr(
             self, "_exec_" + type(op).__name__.removeprefix("Physical"), None
         )
@@ -151,6 +159,13 @@ class Executor:
         return batch.slice(first, min(op.limit, batch.num_rows - first))
 
     def _exec_Order(self, op: P.PhysicalOrder) -> DeviceBatch:
+        # star-rollup fusion: Order(HashAgg(HashJoin)) with the order key ==
+        # the group key == the equi-join key runs as one packed sort
+        from sqlrs_tpu_torch.exec.fused_route import try_order_agg_join_route
+
+        routed = try_order_agg_join_route(self, op)
+        if routed is not None:
+            return routed
         child = self.execute(op.children[0])
         if child.num_rows == 0:
             return child
@@ -166,7 +181,13 @@ class Executor:
         return self._aggregate(op, [], op.aggregates, src, alive)
 
     def _exec_HashAgg(self, op: P.PhysicalHashAgg) -> DeviceBatch:
-        _check_no_fused_route(op)
+        # star-rollup fusion without an ORDER BY: the rowid-packed kernel
+        # recovers the first-appearance group order
+        from sqlrs_tpu_torch.exec.fused_route import try_agg_join_route
+
+        routed = try_agg_join_route(self, op)
+        if routed is not None:
+            return routed
         src, alive = self._fusable_filter_input(op)
         return self._aggregate(op, op.groups, op.aggregates, src, alive)
 
@@ -345,24 +366,6 @@ def _distinct_args(aggs) -> tuple[list, dict[str, int]]:
             keys[repr(a.arg)] = len(args)
             args.append(a.arg)
     return args, keys
-
-
-def _check_no_fused_route(agg: P.PhysicalHashAgg) -> None:
-    """The JAX package sends HashAgg(HashJoin) — seen through a pure-reference
-    pruning Projection — to its fused join+group-by route
-    (exec/fused_route.py). That route is not ported: say so where the
-    reference would take it."""
-    if not agg.groups or len(agg.children) != 1:
-        return
-    child = agg.children[0]
-    if (
-        isinstance(child, P.PhysicalProjection)
-        and len(child.children) == 1
-        and all(isinstance(e, BoundReference) for e in child.exprs)
-    ):
-        child = child.children[0]
-    if isinstance(child, P.PhysicalHashJoin):
-        raise not_ported("fused join+group-by route (exec/fused_route.py)")
 
 
 def _reduce_one_ungrouped(a, col, n: int, alive, device) -> Column:

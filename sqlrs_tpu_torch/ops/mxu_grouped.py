@@ -342,7 +342,8 @@ def _mxu_agg_phase_a(
         for j in range(nl):
             ssum = ssum + (chans[base + j] << (8 * j))
         ssum = ssum[order] + vcnt * biases[ci]           # un-bias
-        scale = torch.tensor(10.0 ** k, dtype=torch.float64, device=dev)
+        # a fill on the device: no host-to-device copy, so no sync
+        scale = torch.full((), 10.0 ** k, dtype=torch.float64, device=dev)
         if op == "sum":
             if is_float_sum:
                 out = ssum.to(torch.float64) / scale
