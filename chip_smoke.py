@@ -5,18 +5,24 @@ through `Database(device="cuda").run`.
     python3 chip_smoke.py
 
 Phases, each printing one line or a few:
-  1. build       — nvcc builds every kernel source in sqlrs_tpu_torch/csrc/
-                   into build/kernels/, one nvcc process for each source, all
+  1. build       — nvcc builds every kernel source in sqlrs_tpu_torch/csrc/,
+                   and the first versions of kernels 1 and 2 kept in
+                   csrc/baseline/ (built and launched only here), into
+                   build/kernels/, one nvcc process for each source, all
                    started together (the times include nvcc).
   2. kernel      — each kernel against its plain PyTorch version on the card,
                    on inputs made from a seed with numpy, at small and ragged
                    shapes and at the shapes of the main path; integer results
-                   must be equal bit for bit (tolerance 0). Times are medians
-                   of CUDA-event timings at the main path's shapes: Q1's for
-                   grouped_histogram, the star rollup's for dense_group_sums
+                   must be equal bit for bit (tolerance 0). Times are CUDA-
+                   event medians (kernels: per call over runs of 10 calls
+                   back to back) at the main path's shapes: Q1's for
+                   grouped_histogram (its group ids from the SF1 lineitem), the star rollup's for dense_group_sums
                    (2^25 rows, 2^16 groups), and the star rollup's rank stage
                    for row_rank_ge / masked_row_sum (the sorted pack32 array
-                   as (2^18, 128) blocks, 2^16 + 1 boundary queries).
+                   as (2^18, 128) blocks, 2^16 + 1 boundary queries). Kernels
+                   1 and 2 are timed in turns with their first versions
+                   (first, current, current, first); each kernel's bound is
+                   its bytes, each read or written once, at 3.35 TB/s.
   3. tpch_sf1    — lineitem's Q1/Q6 columns at SF1 (about 6.0M rows, made
                    with numpy by the TPC-H rules), loaded into the port and
                    queried: one cold run, three warm runs. Results are
@@ -31,6 +37,8 @@ Phases, each printing one line or a few:
                    exactly (revenue bit for bit against the integer-cents sum
                    / 10^4). The dense ORDER BY query must have gone through
                    dense_group_sums once per run.
+  5. profile     — the dense ORDER BY rollup under torch.profiler: device
+                   time by kernel, launches, syncs and busy share per run.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -54,6 +62,10 @@ CURRENTDATE = "1995-06-17"
 STAR_ROWS = 1 << 25     # bench.py's fact table
 STAR_GROUPS = 1 << 16   # and its dim table
 KERNEL_SOURCES = ("mxu_grouped", "mxu_agg", "pallas_kernels")
+# the first versions of kernels 1 and 2, built only here, to be timed in
+# turns with the current ones in this run
+BASELINE_SOURCES = ("baseline/mxu_grouped_v1", "baseline/mxu_agg_v1")
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate
 
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -103,8 +115,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() by CUDA events, after two warm-up calls."""
+def cuda_ms(fn, reps: int, per: int = 1) -> float:
+    """Milliseconds per call of fn() by CUDA events, after two warm-up
+    calls: the median over reps samples, each a run of `per` calls back to
+    back divided by per (so that, for a short kernel, the host's time to
+    enqueue one call does not land between the events)."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -113,11 +128,84 @@ def cuda_ms(fn, reps: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(per):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / per)
     return float(np.median(times))
+
+
+def bound_ms(n_bytes: float) -> float:
+    """The least time to move n_bytes through device memory at its rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def in_turns(old, new, reps: int = 5, per: int = 10):
+    """(new ms, old ms): old, new, new, old, each timed by cuda_ms, and the
+    mean of each pair."""
+    o1, n1, n2, o2 = (cuda_ms(f, reps, per) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def _c_fn(source: str, symbol: str, argtypes):
+    import ctypes
+
+    from sqlrs_tpu_torch.utils.cuda_build import load_kernel_library
+
+    fn = getattr(load_kernel_library(source), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def v1_dense_group_sums(gid, vals, G: int):
+    """The first kernel 2 (csrc/baseline/mxu_agg_v1.cu) on int32 gid and
+    vals, launched as its wrapper launched it: 8192-group tiles over
+    blockIdx.y, about two blocks per SM in all."""
+    import ctypes
+
+    c = ctypes
+    fn = _c_fn("baseline/mxu_agg_v1", "sqlrs_dense_group_sums_v1", [
+        c.c_void_p, c.c_void_p, c.c_longlong, c.c_int, c.c_int, c.c_void_p,
+        c.c_void_p, c.c_int, c.c_int, c.c_void_p])
+    n = int(gid.shape[0])
+    tile = min(G, 8192)
+    n_tiles = -(-G // tile)
+    sms = torch.cuda.get_device_properties(gid.device).multi_processor_count
+    grid_x = max(1, min(-(-n // 1024), -(-2 * sms // n_tiles)))
+    sums = torch.zeros(G, dtype=torch.int64, device=gid.device)
+    counts = torch.zeros(G, dtype=torch.int64, device=gid.device)
+    err = fn(gid.data_ptr(), vals.data_ptr(), n, G, tile, sums.data_ptr(),
+             counts.data_ptr(), grid_x, 1024, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"first kernel 2 launch failed: cudaError {err}")
+    return sums, counts
+
+
+def v1_grouped_histogram(gid, words, plan, G: int):
+    """The first kernel 1 (csrc/baseline/mxu_grouped_v1.cu), launched as its
+    wrapper launched it: 256 threads, four blocks per SM."""
+    import ctypes
+
+    c = ctypes
+    fn = _c_fn("baseline/mxu_grouped_v1", "sqlrs_grouped_histogram_v1", [
+        c.c_void_p, c.c_void_p, c.c_longlong, c.c_int, c.POINTER(c.c_int),
+        c.POINTER(c.c_int), c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_int,
+        c.c_int, c.c_void_p])
+    n, nl = int(gid.shape[0]), len(plan)
+    sms = torch.cuda.get_device_properties(gid.device).multi_processor_count
+    grid = max(max(1, min(-(-n // 256), 4 * sms)), -(-n // (1 << 24)))
+    totals = torch.zeros(1 + nl, G, dtype=torch.int64, device=gid.device)
+    first = torch.full((G,), 2**63 - 1, dtype=torch.int64, device=gid.device)
+    pw = (c.c_int * max(nl, 1))(*[w for w, _ in plan])
+    ps = (c.c_int * max(nl, 1))(*[s for _, s in plan])
+    err = fn(gid.data_ptr(), words.data_ptr(), n, int(words.shape[0]), pw, ps, nl, G,
+             totals.data_ptr(), first.data_ptr(), grid, 256,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"first kernel 1 launch failed: cudaError {err}")
+    return totals, first
 
 
 # ---- phase 2: the kernel against its plain version -------------------------
@@ -143,8 +231,22 @@ def histogram_inputs(rng, n: int, G: int, n_limbs: int, dev, saturate: bool):
     )
 
 
-def phase_kernel(dev, card: str, n_main: int) -> dict:
-    """n_main: the row count of the table the main path aggregates."""
+def q1_group_ids(li) -> np.ndarray:
+    """Q1's group of each lineitem row, as the histogram sees it: the four
+    (returnflag, linestatus) pairs that occur as 0..3, and -1 for a row the
+    ship-date filter drops."""
+    from sqlrs_tpu_torch.types.values import date_str_to_days
+
+    pair = np.searchsorted(np.array(["A", "N", "R"]), li["l_returnflag"]) * 2 + (
+        li["l_linestatus"] == "O")
+    gid = np.array([0, -1, 1, 2, 3, -1], np.int32)[pair]  # AF, NF, NO, RF
+    gid[li["l_shipdate"] > date_str_to_days("1998-09-02")] = -1
+    return gid
+
+
+def phase_kernel(dev, card: str, li: dict) -> dict:
+    """li: the SF1 lineitem whose Q1 the main path aggregates."""
+    n_main = len(li["l_quantity"])
     from sqlrs_tpu_torch.ops.mxu_grouped import (
         grouped_histogram,
         grouped_histogram_plain,
@@ -182,23 +284,43 @@ def phase_kernel(dev, card: str, n_main: int) -> dict:
         raise AssertionError("all-miss input gave nonzero totals")
     cases += 1
 
-    # timing at Q1's shape: G=4, 15 channels over 7 words
+    # Q1's shape: G=4, 15 channels over 7 words
     n = n_main
-    gid = torch.from_numpy(rng.integers(0, 4, n, dtype=np.int32)).to(dev)
     words = torch.from_numpy(rng.integers(0, 1 << 24, (7, n), dtype=np.int32)).to(dev)
     plan = [(0, 0), (1, 0), (1, 8), (1, 16), (2, 0), (2, 8), (2, 16), (3, 0),
             (4, 0), (4, 8), (4, 16), (5, 0), (5, 8), (6, 0)]
-    ms = cuda_ms(lambda: grouped_histogram(gid, words, plan, 4), 20)
-    plain_ms = cuda_ms(lambda: grouped_histogram_plain(gid, words, plan, 4), 20)
-    gb = n * 4 * (1 + 7) / 1e9
+    # skew: one group with 90% of the rows, then every row in one group
+    dominant = np.where(rng.random(n) < 0.9, 1, rng.integers(0, 4, n)).astype(np.int32)
+    for what, g_np in (("one dominant group", dominant),
+                       ("every row in one group", np.full(n, 2, np.int32))):
+        g_t = torch.from_numpy(g_np).to(dev)
+        tk, fk = grouped_histogram(g_t, words, plan, 4)
+        tp, fp = grouped_histogram_plain(g_t, words, plan, 4)
+        torch.cuda.synchronize()
+        if not (torch.equal(tk, tp) and torch.equal(fk, fp)):
+            raise AssertionError(f"grouped_histogram != plain with {what}")
+        cases += 1
+    q1_gid = q1_group_ids(li)
+    shares = np.bincount(q1_gid[q1_gid >= 0], minlength=4) / n
+    gid = torch.from_numpy(q1_gid).to(dev)
+    tk, fk = grouped_histogram(gid, words, plan, 4)
+    t1, f1 = v1_grouped_histogram(gid, words, plan, 4)
+    if not (torch.equal(tk, t1) and torch.equal(fk, f1)):
+        raise AssertionError("grouped_histogram != the first kernel at Q1's shape")
+    ms, v1_ms = in_turns(lambda: v1_grouped_histogram(gid, words, plan, 4),
+                         lambda: grouped_histogram(gid, words, plan, 4))
+    plain_ms = cuda_ms(lambda: grouped_histogram_plain(gid, words, plan, 4), 5)
+    bound = bound_ms(n * 4 * (1 + 7) + (1 + len(plan) + 1) * 4 * 8)
     print(
         f"phase kernel: grouped_histogram == plain bit for bit in {cases} cases; "
-        f"at Q1's shape (n={n}, G=4, nch=15, 7 words): kernel {ms:.3f} ms "
-        f"({gb / (ms / 1e3):.0f} GB/s of input), plain {plain_ms:.3f} ms "
-        f"[{card}]",
+        f"at Q1's shape (n={n}, G=4 with Q1's group ids, shares "
+        f"{', '.join(f'{x:.3f}' for x in shares)}, nch=15, 7 words): kernel {ms:.3f} ms, first "
+        f"kernel {v1_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({bound / ms:.1%} of it) [{card}]",
         flush=True,
     )
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": None, "baseline_ms": v1_ms}
 
 
 def dense_inputs(rng, n: int, G: int, hi: int, dev, saturate: bool = False):
@@ -215,18 +337,58 @@ def dense_inputs(rng, n: int, G: int, hi: int, dev, saturate: bool = False):
     return torch.from_numpy(gid).to(dev), torch.from_numpy(vals).to(dev)
 
 
+def keyed_inputs(rng, n: int, G: int, kdt, vdt, key_min: int, masked: bool,
+                 skew: str, dev, val_bits=None):
+    """Stored-column inputs: keys in [key_min, key_min + G) with the given
+    skew (zipf(1.2), every row on one id, hot ids at both ends, uniform),
+    misses just outside the domain and, for int64 keys, 2^32 away from it;
+    values of both signs, or in [0, 2^val_bits) with every seventh at the
+    top; a validity mask when asked."""
+    if skew == "zipf":
+        gid = np.minimum(rng.zipf(1.2, n), G) - 1
+    elif skew == "one_id":
+        gid = np.full(n, G // 3, np.int64)
+    elif skew == "ends":
+        gid = np.where(rng.random(n) < 0.5, 0, G - 1)
+        gid[::3] = rng.integers(0, G, len(gid[::3]))
+    else:
+        gid = rng.integers(0, G, n)
+    keys = gid.astype(np.int64) + key_min
+    if kdt == np.int64:
+        keys[5::17] += 1 << 32
+        keys[6::17] -= 1 << 32
+    keys[7::19] = key_min - 1
+    keys[8::19] = key_min + G
+    if val_bits is not None:
+        vals = rng.integers(0, 1 << val_bits, n)
+        vals[::7] = (1 << val_bits) - 1
+    elif vdt == np.int64:
+        vals = rng.integers(-(1 << 40), 1 << 40, n)
+    else:
+        vals = rng.integers(-(1 << 31), (1 << 31) - 1, n)
+    out = [torch.from_numpy(keys.astype(kdt)).to(dev), torch.from_numpy(vals.astype(vdt)).to(dev)]
+    out.append(torch.from_numpy(rng.random(n) < 0.75).to(dev) if masked else None)
+    return out
+
+
 def phase_dense_kernel(dev, card: str, star: dict) -> dict:
-    """dense_group_sums against its plain version, then timed at the star
-    rollup's shape (the bench's zipf keys as gids, its values)."""
+    """dense_group_sums against its plain version: int32 gids as the first
+    kernel took them, the stored-column contract (int32 and int64 keys and
+    values, key_min with keys 2^32 away, invalid rows), and skews at 1, 2,
+    5 and 8 interleaved owners. Then timed at the star rollup's shape, in
+    turns with the first kernel: the kernel alone on int32 gids, and the
+    whole step on the stored int64 columns and mask against the route's
+    former prelude plus the first kernel."""
     from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums, dense_group_sums_plain
 
     rng = np.random.default_rng(SEED + 1)
     max_err, cases = 0, 0
 
-    def check(gid, vals, G, what):
+    def check(keys, vals, G, what, key_min=0, valid=None, val_bits=None):
         nonlocal max_err, cases
-        sk, ck = dense_group_sums(gid, vals, G)
-        sp, cp = dense_group_sums_plain(gid, vals, G)
+        sk, ck = dense_group_sums(keys, vals, G, key_min=key_min, valid=valid,
+                                  val_bits=val_bits)
+        sp, cp = dense_group_sums_plain(keys, vals, G, key_min=key_min, valid=valid)
         torch.cuda.synchronize()
         if not (torch.equal(sk, sp) and torch.equal(ck, cp)):
             raise AssertionError(f"dense_group_sums != plain at {what}")
@@ -245,20 +407,72 @@ def phase_dense_kernel(dev, card: str, star: dict) -> dict:
     sk, ck = check(gid, vals[:70_001], STAR_GROUPS, "every row a miss")
     if int(ck.sum()) != 0 or int(sk.abs().sum()) != 0:
         raise AssertionError("all-miss input gave nonzero totals")
+    for kdt in (np.int32, np.int64):
+        for vdt in (np.int32, np.int64):
+            for masked in (False, True):
+                key_min = (1 << 32) + 7 if kdt == np.int64 else -5
+                keys, vals, valid = keyed_inputs(rng, 1_000_003, STAR_GROUPS, kdt, vdt,
+                                                 key_min, masked, "uniform", dev)
+                check(keys, vals, STAR_GROUPS, f"keys {kdt.__name__} values "
+                      f"{vdt.__name__} key_min {key_min} mask {masked}", key_min, valid)
+    # 1, 2, 5, 8 owners; signed values (a count and a sum in two cells),
+    # then values in [0, 2^7) and [0, 2^20) with val_bits given: 4M rows are
+    # 22 bits, so 22 + 22 + 20 = 64 fills the packed cell exactly
+    for G in (8192, 8193, 40000, STAR_GROUPS):
+        for skew in ("zipf", "one_id", "ends"):
+            for val_bits in (None, 7, 20):
+                keys, vals, valid = keyed_inputs(rng, 4_000_037, G, np.int64, np.int64,
+                                                 -(1 << 40), True, skew, dev, val_bits)
+                check(keys, vals, G, f"G={G} {skew} keys, val_bits {val_bits}",
+                      -(1 << 40), valid, val_bits)
 
-    gid = torch.from_numpy(star["gid"].astype(np.int32)).to(dev)
-    vals = torch.from_numpy(star["v"].astype(np.int32)).to(dev)
-    ms = cuda_ms(lambda: dense_group_sums(gid, vals, STAR_GROUPS), 20)
-    plain_ms = cuda_ms(lambda: dense_group_sums_plain(gid, vals, STAR_GROUPS), 20)
-    gb = STAR_ROWS * 8 / 1e9
+    # the star rollup's stored columns: BIGINT keys (the dense dim's keys
+    # are 0..2^16-1, so key_min = 0), BIGINT values below 100 (the route
+    # passes val_bits 7), and the keys' mask
+    G, key_min, val_bits = STAR_GROUPS, 0, 7
+    keys64 = torch.from_numpy(star["gid"]).to(dev)
+    vals64 = torch.from_numpy(star["v"]).to(dev)
+    valid = torch.ones(STAR_ROWS, dtype=torch.bool, device=dev)
+    check(keys64, vals64, G, "the star rollup's columns", key_min, valid, val_bits)
+    gid32, vals32 = keys64.to(torch.int32), vals64.to(torch.int32)
+    sk, ck = check(gid32, vals32, G, "the star rollup's gids", val_bits=val_bits)
+    s1, c1 = v1_dense_group_sums(gid32, vals32, G)
+    if not (torch.equal(sk, s1) and torch.equal(ck, c1)):
+        raise AssertionError("dense_group_sums != the first kernel at the star shape")
+
+    def v1_step():
+        # the route's former prelude (fused_route.py's mask, mxu_agg.py's
+        # int64 rebase and int32 casts), then the first kernel
+        fk = torch.where(valid, keys64, key_min - 1)
+        k64 = fk - key_min
+        inr = (k64 >= 0) & (k64 < G)
+        k32 = torch.where(inr, k64, -1).to(torch.int32)
+        return v1_dense_group_sums(k32, vals64.to(torch.int32).contiguous(), G)
+
+    alone_ms, alone_v1_ms = in_turns(lambda: v1_dense_group_sums(gid32, vals32, G),
+                                     lambda: dense_group_sums(gid32, vals32, G,
+                                                              val_bits=val_bits))
+    ms, v1_ms = in_turns(v1_step, lambda: dense_group_sums(
+        keys64, vals64, G, key_min=key_min, valid=valid, val_bits=val_bits))
+    plain_ms = cuda_ms(lambda: dense_group_sums_plain(
+        keys64, vals64, G, key_min=key_min, valid=valid), 5)
+    wf = vals64.to(torch.float64)
+    library_ms = cuda_ms(lambda: (torch.bincount(keys64, minlength=G),
+                                  torch.bincount(keys64, weights=wf, minlength=G)), 5)
+    bound = bound_ms(STAR_ROWS * (8 + 8 + 1) + G * 16)
+    alone_bound = bound_ms(STAR_ROWS * (4 + 4) + G * 16)
     print(
         f"phase kernel: dense_group_sums == plain bit for bit in {cases} cases; at "
-        f"the star rollup's shape (n={STAR_ROWS}, G={STAR_GROUPS}, zipf keys): "
-        f"kernel {ms:.3f} ms ({gb / (ms / 1e3):.0f} GB/s of input, read "
-        f"{-(-STAR_GROUPS // 8192)} times), plain {plain_ms:.3f} ms [{card}]",
+        f"the star rollup's shape (n={STAR_ROWS}, G={G}, zipf keys): whole step "
+        f"(int64 keys and values, mask) {ms:.3f} ms, first kernel with the former "
+        f"prelude {v1_ms:.3f} ms, plain {plain_ms:.3f} ms, torch.bincount pair "
+        f"{library_ms:.3f} ms, bound {bound:.3f} ms ({bound / ms:.1%} of it); kernel "
+        f"alone on int32 gids {alone_ms:.3f} ms, first kernel {alone_v1_ms:.3f} ms, "
+        f"bound {alone_bound:.3f} ms ({alone_bound / alone_ms:.1%}) [{card}]",
         flush=True,
     )
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": library_ms, "baseline_ms": v1_ms}
 
 
 def rank_inputs(rng, nq: int, dev):
@@ -333,11 +547,16 @@ def phase_rank_kernels(dev, card: str, star: dict) -> dict:
     if not torch.equal(prefix, full[ranks]):
         raise AssertionError("masked_row_sum does not recompose the value prefix sums")
 
+    # bytes read once: each distinct row a query lands on, and per query its
+    # block, its query or lane count, and its answer
+    nq = q.shape[0]
     times = {
-        "row_rank_ge": cuda_ms(lambda: row_rank_ge(sp2d, b_rank, q), 20),
-        "row_rank_ge_plain": cuda_ms(lambda: row_rank_ge_plain(sp2d, b_rank, q), 20),
-        "masked_row_sum": cuda_ms(lambda: masked_row_sum(v2d, b_sum, rem), 20),
-        "masked_row_sum_plain": cuda_ms(lambda: masked_row_sum_plain(v2d, b_sum, rem), 20),
+        "row_rank_ge_bound": bound_ms(torch.unique(b_rank).numel() * 512 + nq * 12),
+        "masked_row_sum_bound": bound_ms(torch.unique(b_sum).numel() * 512 + nq * 12),
+        "row_rank_ge": cuda_ms(lambda: row_rank_ge(sp2d, b_rank, q), 5, 10),
+        "row_rank_ge_plain": cuda_ms(lambda: row_rank_ge_plain(sp2d, b_rank, q), 5, 10),
+        "masked_row_sum": cuda_ms(lambda: masked_row_sum(v2d, b_sum, rem), 5, 10),
+        "masked_row_sum_plain": cuda_ms(lambda: masked_row_sum_plain(v2d, b_sum, rem), 5, 10),
     }
     print(
         f"phase kernel: row_rank_ge and masked_row_sum == plain bit for bit in "
@@ -346,10 +565,17 @@ def phase_rank_kernels(dev, card: str, star: dict) -> dict:
         f"queries): row_rank_ge {times['row_rank_ge']:.3f} ms, plain "
         f"{times['row_rank_ge_plain']:.3f} ms; masked_row_sum "
         f"{times['masked_row_sum']:.3f} ms, plain "
-        f"{times['masked_row_sum_plain']:.3f} ms [{card}]",
+        f"{times['masked_row_sum_plain']:.3f} ms; bounds "
+        f"{times['row_rank_ge_bound']:.4f} / {times['masked_row_sum_bound']:.4f} ms "
+        f"[{card}]",
         flush=True,
     )
-    return {"max_abs_err": max_err, **times}
+    # not redesigned, so no first version to time against; no one PyTorch
+    # call computes either
+    return {name: {"max_abs_err": max_err, "ms": times[name],
+                   "plain_ms": times[f"{name}_plain"], "bound_ms": times[f"{name}_bound"],
+                   "library_ms": None, "baseline_ms": None}
+            for name in ("row_rank_ge", "masked_row_sum")}
 
 
 # ---- phase 3: TPC-H Q1/Q6 at SF1 -------------------------------------------
@@ -641,7 +867,64 @@ def phase_star(dev, card: str, star: dict, tpch_db, li: dict, orders: dict) -> d
         f"the reference); peak device memory {peak_gb:.2f} GB [{card}]",
         flush=True,
     )
-    return launches
+    return launches, db
+
+
+# ---- phase 5: a profile of the dense ORDER BY rollup ----------------------
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def phase_profile(dev, card: str, db, runs: int = 5) -> None:
+    """The dense ORDER BY star rollup: the median of 5 unprofiled warm runs,
+    then torch.profiler over `runs` more: device time by kernel, kernel
+    launches, stream syncs and host-to-device copies per run, and the busy
+    share (device kernel time over the profiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sql = STAR_SQL["dense_order"][0]
+    for _ in range(2):
+        db.run(sql)
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.run(sql)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            db.run(sql)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def device_us(e) -> float:
+        return float(getattr(e, "self_device_time_total", 0) or
+                     getattr(e, "self_cuda_time_total", 0) or 0)
+
+    kernels = sorted(((e.key, device_us(e), e.count) for e in events
+                      if str(e.device_type).endswith("CUDA") and device_us(e) > 0),
+                     key=lambda k: -k[1])
+    calls = {e.key: e.count for e in events}
+    device_ms = sum(us for _, us, _ in kernels) / 1e3 / runs
+    if device_ms == 0:
+        raise AssertionError("torch.profiler traced no device time")
+    print(
+        f"phase profile: dense ORDER BY rollup warm {float(np.median(warm)):.3f} ms "
+        f"(median of 5 unprofiled: {', '.join(f'{t:.3f}' for t in warm)}); profiled "
+        f"over {runs} runs: device {device_ms:.3f} ms per run, busy share "
+        f"{device_ms * runs / wall_ms:.3f}, kernel launches "
+        f"{sum(calls.get(c, 0) for c in _LAUNCH_CALLS) / runs:.1f}, stream syncs "
+        f"{sum(calls.get(c, 0) for c in _SYNC_CALLS) / runs:.1f}, cudaMemcpyAsync "
+        f"{calls.get('cudaMemcpyAsync', 0) / runs:.1f} per run [{card}]",
+        flush=True,
+    )
+    for name, us, count in kernels[:10]:
+        print(f"  {us / 1e3 / runs:8.3f} ms  x{count / runs:4.1f}  {name[:110]}", flush=True)
 
 
 def build_all() -> None:
@@ -650,12 +933,13 @@ def build_all() -> None:
 
     from sqlrs_tpu_torch.utils.cuda_build import BUILD_INFO, load_kernel_library
 
+    sources = KERNEL_SOURCES + BASELINE_SOURCES
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(load_kernel_library, KERNEL_SOURCES))
-    print(f"phase build: {len(KERNEL_SOURCES)} sources in {time.perf_counter() - t0:.2f} s",
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(load_kernel_library, sources))
+    print(f"phase build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for name in KERNEL_SOURCES:
+    for name in sources:
         info = BUILD_INFO[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines() if "ptxas info" in ln]
         print(f"  {name}.cu: nvcc {info['seconds']:.2f} s; {' | '.join(ptxas)}", flush=True)
@@ -678,30 +962,31 @@ def main() -> int:
     li, orders = gen_lineitem(SEED)
     gen_s = time.perf_counter() - t0
     star = gen_star()
-    k1 = phase_kernel(dev, card, len(li["l_quantity"]))
+    k1 = phase_kernel(dev, card, li)
     k2 = phase_dense_kernel(dev, card, star)
     k34 = phase_rank_kernels(dev, card, star)
     hist_launches, tpch_db = phase_tpch(dev, card, li, orders, gen_s)
-    launches = phase_star(dev, card, star, tpch_db, li, orders)
+    launches, star_db = phase_star(dev, card, star, tpch_db, li, orders)
+    phase_profile(dev, card, star_db)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    def entry(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda", "source": f"sqlrs_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+                "replaces": replaces, "launches": launches, "max_abs_err": k["max_abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes", "library_ms": k["library_ms"],
+                "baseline_ms": k["baseline_ms"]}
 
     print(json.dumps({"kernels": [
         entry("grouped_histogram", "mxu_grouped.cu", "sqlrs_tpu/ops/mxu_grouped.py:154",
-              hist_launches, k1["max_abs_err"], k1["ms"], k1["plain_ms"]),
+              hist_launches, k1),
         entry("dense_group_sums", "mxu_agg.cu", "sqlrs_tpu/ops/mxu_agg.py:64",
-              launches["dense_group_sums"], k2["max_abs_err"], k2["ms"], k2["plain_ms"]),
+              launches["dense_group_sums"], k2),
         # no production path calls these two, as in the reference: their
         # count over the star rollup's runs stays 0
         entry("row_rank_ge", "pallas_kernels.cu", "sqlrs_tpu/ops/pallas_kernels.py:57",
-              launches["row_rank_ge"], k34["max_abs_err"], k34["row_rank_ge"],
-              k34["row_rank_ge_plain"]),
+              launches["row_rank_ge"], k34["row_rank_ge"]),
         entry("masked_row_sum", "pallas_kernels.cu", "sqlrs_tpu/ops/pallas_kernels.py:140",
-              launches["masked_row_sum"], k34["max_abs_err"], k34["masked_row_sum"],
-              k34["masked_row_sum_plain"]),
+              launches["masked_row_sum"], k34["masked_row_sum"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

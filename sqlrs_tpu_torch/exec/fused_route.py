@@ -227,9 +227,9 @@ def _routed_kernel_mxu(fkeys, fvalid, fvals, key_min: int, n_groups: int,
                        val_bits: int):
     """Pure sum+count rollup over a DENSE dim domain: the dense-group kernel
     (ops/mxu_agg.py). dim_sorted is consecutive, so gid order IS output
-    order; invalid fact keys mask below the domain."""
-    fk = torch.where(fvalid, fkeys.to(torch.int64), key_min - 1)
-    return mxu_groupby_dense(fk, fvals, n_groups, val_bits, key_min=key_min)
+    order; invalid fact keys are misses (the kernel reads fvalid)."""
+    return mxu_groupby_dense(fkeys, fvals, n_groups, val_bits, key_min=key_min,
+                             valid=fvalid)
 
 
 def _routed_kernel_firstapp(fkeys, fvalid, pairs, dim_sorted, miss_key: int,
@@ -721,7 +721,7 @@ def _try_route(executor, op, agg, ordered: bool, reverse: bool = False,
         )
         if used_mxu:
             out = _routed_kernel_mxu(
-                fact_key_col.data.to(torch.int64), fact_key_col.valid,
+                fact_key_col.data, fact_key_col.valid,
                 vals, d_min, n_groups=n_groups, val_bits=val_bits,
             )
         elif float_tv:

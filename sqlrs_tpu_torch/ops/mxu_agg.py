@@ -6,8 +6,10 @@ Pallas kernel computes it on the TPU's matrix unit as one-hot bf16 matmuls
 (gid = hi·K_LO + lo, 8-bit value limbs, carry-split f32 accumulators). The
 port keeps the contract, not that formulation: `dense_group_sums` returns
 exact int64 sums and counts. On a CUDA tensor it launches the hand-written
-kernel in csrc/mxu_agg.cu (shared-memory integer histograms over tiles of
-the group domain); on a CPU tensor it runs `dense_group_sums_plain`, the
+kernel in csrc/mxu_agg.cu (one pass over the columns as stored, with the
+int64 rebase and the miss mask in registers, and the group domain
+interleaved over the shared memory of a thread block cluster); on a CPU
+tensor it runs `dense_group_sums_plain`, the
 same function in plain PyTorch. Nothing falls back from one to the other.
 
 Selection (`mxu_eligible`) keeps the reference's bounds, so the same queries
@@ -28,8 +30,7 @@ K_LO = 256            # lanes of the reference's lo one-hot
 MXU_MAX_GROUPS = 1 << 16
 MXU_MAX_VAL_BITS = 24  # the reference's 3 exact bf16 limbs
 
-_BLOCK = 1024          # CUDA threads per block
-_TILE = 8192           # groups per block: 96 KB of shared counters
+_INT64_MIN, _INT64_MAX = -(1 << 63), (1 << 63) - 1
 
 
 def _plan(n_groups: int, val_bits: int):
@@ -71,49 +72,69 @@ def mxu_eligible(n_groups: int, val_max, val_min, dense: bool, device) -> bool:
 # --------------------------------------------------------------------------
 
 
-def _check_inputs(gid, vals, n_groups: int) -> None:
-    if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous():
-        raise ValueError("gid must be a contiguous 1-D int32 tensor")
-    if (
-        vals.dtype != torch.int32
-        or vals.shape != gid.shape
-        or not vals.is_contiguous()
+_KEY_DTYPES = (torch.int32, torch.int64)
+
+
+def _check_inputs(keys, vals, n_groups: int, key_min: int, valid, val_bits) -> None:
+    if keys.dtype not in _KEY_DTYPES or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous 1-D int32 or int64 tensor")
+    if vals.dtype not in _KEY_DTYPES or vals.shape != keys.shape or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous int32 or int64 tensor shaped like keys")
+    if valid is not None and (
+        valid.dtype != torch.bool or valid.shape != keys.shape or not valid.is_contiguous()
     ):
-        raise ValueError("vals must be a contiguous int32 tensor shaped like gid")
-    if vals.device != gid.device:
-        raise ValueError("gid and vals must be on one device")
+        raise ValueError("valid must be a contiguous bool tensor shaped like keys")
+    if vals.device != keys.device or (valid is not None and valid.device != keys.device):
+        raise ValueError("keys, vals and valid must be on one device")
     if not 1 <= n_groups <= MXU_MAX_GROUPS:
         raise ValueError(f"n_groups {n_groups} outside [1, {MXU_MAX_GROUPS}]")
-    if gid.shape[0] >= 1 << 31:
+    if not _INT64_MIN <= key_min <= _INT64_MAX:
+        raise ValueError(f"key_min {key_min} is not an int64")
+    if keys.shape[0] >= 1 << 31:
         raise ValueError("more than 2^31 - 1 rows")
+    if val_bits is not None and not 1 <= val_bits <= 63:
+        raise ValueError(f"val_bits {val_bits} outside [1, 63]")
 
 
-def dense_group_sums(gid, vals, n_groups: int):
-    """(sums int64 (G), counts int64 (G)): per group id in [0, G), the sum
-    of vals and the number of rows; a gid outside [0, G) is a miss. Sums are
-    exact int64 for any int32 values.
+def dense_group_sums(keys, vals, n_groups: int, key_min: int = 0, valid=None,
+                     val_bits=None):
+    """(sums int64 (G), counts int64 (G)) per group id g = key - key_min in
+    [0, G): the sum of vals and the number of rows. A row is a miss when
+    valid (a bool mask, or None for all rows) is false or its key lies
+    outside [key_min, key_min + G); the rebase is taken in int64, before
+    anything is narrowed. keys and vals are int32 or int64. Sums are exact
+    int64 for any int32 values, and for int64 values while the int64 sum
+    does not wrap. val_bits, when given, is the caller's word that
+    0 <= v < 2^val_bits for every row: the kernel may then pack a count and
+    a sum into one 64-bit cell (csrc/mxu_agg.cu). The result is the same.
 
     A CUDA tensor goes to the kernel (csrc/mxu_agg.cu), a CPU tensor to
     dense_group_sums_plain; any other device raises."""
-    _check_inputs(gid, vals, n_groups)
-    if gid.device.type == "cuda":
-        return _dense_group_sums_cuda(gid, vals, n_groups)
-    if gid.device.type == "cpu":
-        return dense_group_sums_plain(gid, vals, n_groups)
-    raise ValueError(f"dense_group_sums has no version for {gid.device}")
+    key_min = int(key_min)
+    _check_inputs(keys, vals, n_groups, key_min, valid, val_bits)
+    if keys.device.type == "cuda":
+        return _dense_group_sums_cuda(keys, vals, n_groups, key_min, valid, val_bits)
+    if keys.device.type == "cpu":
+        return dense_group_sums_plain(keys, vals, n_groups, key_min, valid)
+    raise ValueError(f"dense_group_sums has no version for {keys.device}")
 
 
 dense_group_sums.launches = 0  # kernel launches, counted where they happen
 
 
-def dense_group_sums_plain(gid, vals, n_groups: int):
-    """dense_group_sums in plain PyTorch: int64 index_add_ over the
-    in-range rows."""
-    dev = gid.device
-    inr = (gid >= 0) & (gid < n_groups)
-    g = torch.where(inr, gid, 0).to(torch.int64)
+def dense_group_sums_plain(keys, vals, n_groups: int, key_min: int = 0, valid=None,
+                           val_bits=None):
+    """dense_group_sums in plain PyTorch: the int64 rebase and miss mask,
+    then int64 index_add_ over the rows that hit. val_bits changes nothing
+    here."""
+    dev = keys.device
+    k64 = keys.to(torch.int64) - int(key_min)  # wraps as the kernel's does
+    inr = (k64 >= 0) & (k64 < n_groups)
+    if valid is not None:
+        inr = inr & valid
+    g = torch.where(inr, k64, 0)
     sums = torch.zeros(n_groups, dtype=torch.int64, device=dev)
-    sums.index_add_(0, g, torch.where(inr, vals, 0).to(torch.int64))
+    sums.index_add_(0, g, torch.where(inr, vals.to(torch.int64), 0))
     counts = torch.zeros(n_groups, dtype=torch.int64, device=dev)
     counts.index_add_(0, g, inr.to(torch.int64))
     return sums, counts
@@ -126,29 +147,26 @@ def _kernel_fn():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
     return fn
 
 
-def _dense_group_sums_cuda(gid, vals, n_groups: int):
+def _dense_group_sums_cuda(keys, vals, n_groups: int, key_min: int, valid, val_bits):
     fn = _kernel_fn()
-    dev = gid.device
-    n = int(gid.shape[0])
-    tile = min(n_groups, _TILE)
-    n_tiles = -(-n_groups // tile)
-    # about two resident blocks per SM in all, over the tiles
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid_x = max(1, min(-(-n // _BLOCK), -(-2 * sms // n_tiles)))
+    dev = keys.device
     sums = torch.zeros(n_groups, dtype=torch.int64, device=dev)
     counts = torch.zeros(n_groups, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            gid.data_ptr(), vals.data_ptr(), n, n_groups, tile,
-            sums.data_ptr(), counts.data_ptr(), grid_x, _BLOCK, stream,
+            keys.data_ptr(), keys.element_size(),
+            None if valid is None else valid.data_ptr(), key_min,
+            vals.data_ptr(), vals.element_size(), val_bits or 0,
+            int(keys.shape[0]), n_groups,
+            sums.data_ptr(), counts.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"dense_group_sums kernel launch failed: cudaError {err}")
@@ -161,25 +179,31 @@ def _dense_group_sums_cuda(gid, vals, n_groups: int):
 # --------------------------------------------------------------------------
 
 
+def _as_kernel_ints(x):
+    return x.contiguous() if x.dtype in _KEY_DTYPES else x.to(torch.int64)
+
+
 def mxu_groupby_dense(keys, vals, n_groups: int, val_bits: int,
-                      key_min=None, dim_keys=None, with_perm: bool = False):
+                      key_min=None, dim_keys=None, with_perm: bool = False,
+                      valid=None):
     """sum(v), count(*) grouped by key for keys in [key_min, key_min +
-    n_groups) (misses = any key outside that range); exact int64 results.
-    Requires 0 <= v < 2^val_bits, val_bits <= 24. With with_perm=True the
-    gid-ordered outputs are scattered to dim-row order (argsort(dim_keys)),
-    join_groupby_direct's contract."""
+    n_groups) (misses = any key outside that range, and any row whose
+    `valid` is false); exact int64 results. Requires 0 <= v < 2^val_bits,
+    val_bits <= 24. The columns go to dense_group_sums as they are stored
+    (int32 or int64), which rebases in int64 before any narrowing. With
+    with_perm=True the gid-ordered outputs are scattered to dim-row order
+    (argsort(dim_keys)), join_groupby_direct's contract."""
     _, nlimbs, _ = _plan(n_groups, val_bits)
     if 8 * nlimbs > MXU_MAX_VAL_BITS:
         raise ValueError(f"val_bits {val_bits} > {MXU_MAX_VAL_BITS}")
-    if key_min is not None:
-        # rebase in int64 FIRST (an int32 cast of far-away keys could wrap
-        # into [0, G) as a false hit), then mask to the miss value -1
-        k64 = keys.to(torch.int64) - key_min
-        inr = (k64 >= 0) & (k64 < n_groups)
-        k32 = torch.where(inr, k64, -1).to(torch.int32)
-    else:
-        k32 = keys.to(torch.int32).contiguous()
-    sums, counts = dense_group_sums(k32, vals.to(torch.int32).contiguous(), n_groups)
+    if key_min is None:
+        # the reference casts the keys themselves to int32 here
+        keys, key_min = keys.to(torch.int32), 0
+    sums, counts = dense_group_sums(
+        _as_kernel_ints(keys), _as_kernel_ints(vals), n_groups,
+        key_min=int(key_min), valid=None if valid is None else valid.contiguous(),
+        val_bits=val_bits,
+    )
     if with_perm:
         from sqlrs_tpu_torch.ops.pipelines import _scatter
 

@@ -20,8 +20,9 @@ takes when its composite key domain has at most MXU_AGG_MAX_GROUPS groups
 
 The reference's kernel is a Pallas one-hot matmul for the TPU's matrix unit.
 Here the histogram is `grouped_histogram`: on a CUDA tensor it launches the
-hand-written kernel in csrc/mxu_grouped.cu (exact int64 totals from integer
-atomics, and the exact first row by atomicMin, which replaces the
+hand-written kernel in csrc/mxu_grouped.cu (exact int64 totals from
+warp-aggregated integer atomics into per-warp shared histograms, and the
+exact first row by atomicMin, which replaces the
 reference's first-block table and its (G, 2048) gather); on a CPU tensor it
 runs `grouped_histogram_plain`, the same function in plain PyTorch. Nothing
 falls back from one to the other.
@@ -144,11 +145,12 @@ def _histogram_lib():
 
 def _launch_grid(n: int, device) -> int:
     """Blocks for n rows: a few per SM, and enough that no block covers more
-    than 2^24 rows."""
+    than 2^24 rows (a thread takes 4 rows a step)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = max(1, min(-(-n // _BLOCK), 4 * sms))
+    step = 4 * _BLOCK
+    grid = max(1, min(-(-n // step), 4 * sms))
     grid = max(grid, -(-n // _MAX_ROWS_PER_BLOCK))
-    rows_per_block = -(-n // (grid * _BLOCK)) * _BLOCK
+    rows_per_block = -(-n // (grid * step)) * step
     if rows_per_block > _MAX_ROWS_PER_BLOCK:
         raise ValueError(f"{rows_per_block} rows per block > 2^24")
     return grid

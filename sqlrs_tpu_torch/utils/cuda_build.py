@@ -43,14 +43,15 @@ def _nvcc() -> str:
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """The ctypes handle of `csrc/<name>.cu`, built first if needed."""
+    """The ctypes handle of `csrc/<name>.cu`, built first if needed. A name
+    may hold a subdirectory of csrc/ (`baseline/mxu_agg_v1`)."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name.replace('/', '_')}_{digest[:12]}.so")
     info = {"seconds": 0.0, "log": ""}
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)

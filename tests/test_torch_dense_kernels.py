@@ -68,6 +68,101 @@ def test_plain_dense_group_sums_matches_numpy(n, G, hi, all_miss):
     assert mxu_agg.dense_group_sums.launches == before
 
 
+def _numpy_dense_keyed(keys, vals, G, key_min, valid):
+    """The contract in numpy: gid = key - key_min in int64 (wrapping), a
+    miss when invalid or outside [0, G)."""
+    with np.errstate(over="ignore"):
+        k = keys.astype(np.int64) - np.int64(key_min)
+    m = (k >= 0) & (k < G)
+    if valid is not None:
+        m &= valid
+    sums, counts = np.zeros(G, np.int64), np.zeros(G, np.int64)
+    np.add.at(sums, k[m], vals[m].astype(np.int64))
+    np.add.at(counts, k[m], 1)
+    return sums, counts
+
+
+# (G, keys dtype, values dtype, key_min, with a mask, skew)
+# G 8192 / 8193 / 40000 / 65536 make 1 / 2 / 5 / 8 interleaved owners; 8193
+# and 40000 leave a ragged last slot
+KEYED_CASES = [
+    (8192, np.int64, np.int64, 0, False, "zipf"),
+    (8193, np.int32, np.int32, -17, True, "ends"),
+    (40000, np.int64, np.int32, 5_000_000_000, True, "zipf"),
+    (65536, np.int32, np.int64, 0, False, "one_id"),
+    (65536, np.int64, np.int64, -(1 << 40), True, "zipf"),
+    (3, np.int64, np.int32, 1 << 62, False, "uniform"),
+]
+
+
+def _keyed_case(G, kdt, vdt, key_min, masked, skew, n=20_011, seed=0):
+    """Keys with the given skew over [key_min, key_min + G), misses 2^32
+    below and above the domain and just outside it; values of both signs
+    (int64 ones near +-2^40, int32 ones over the whole range)."""
+    rng = np.random.default_rng(seed + G + n)
+    if skew == "zipf":
+        gid = np.minimum(rng.zipf(1.2, n), G) - 1
+    elif skew == "ends":
+        gid = np.where(rng.random(n) < 0.5, 0, G - 1)
+        gid[::3] = rng.integers(0, G, len(gid[::3]))
+    elif skew == "one_id":
+        gid = np.full(n, G // 3)
+    else:
+        gid = rng.integers(0, G, n)
+    keys = gid.astype(np.int64) + key_min if kdt == np.int64 else gid + key_min
+    keys = np.asarray(keys).astype(np.int64)
+    if kdt == np.int64:
+        keys[5::17] = keys[5::17] + (1 << 32)
+        keys[6::17] = keys[6::17] - (1 << 32)
+    keys[7::19] = key_min - 1
+    keys[8::19] = key_min + G
+    keys = keys.astype(kdt)
+    if vdt == np.int64:
+        vals = rng.integers(-(1 << 40), 1 << 40, n)
+    else:
+        vals = rng.integers(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64)
+        vals[::5] = np.iinfo(np.int32).min
+    vals = vals.astype(vdt)
+    valid = rng.random(n) < 0.75 if masked else None
+    return keys, vals, valid
+
+
+# (G, skew, val_bits): values in [0, 2^val_bits), which lets the kernel pack
+# a count and a sum into one cell; 300,007 rows are 19 bits, so val_bits 26
+# fills the cell (19 + 19 + 26 = 64) and 27 does not pack
+PACKED_CASES = [(65536, "zipf", 7), (8193, "one_id", 26), (40000, "ends", 27)]
+
+
+def _packed_case(G, skew, val_bits, n=300_007):
+    keys, _, valid = _keyed_case(G, np.int64, np.int64, 3, True, skew, n=n)
+    rng = np.random.default_rng(G + val_bits)
+    vals = rng.integers(0, 1 << val_bits, n)
+    vals[::7] = (1 << val_bits) - 1
+    return keys, vals, valid
+
+
+@pytest.mark.parametrize("G,skew,val_bits", PACKED_CASES)
+def test_plain_dense_group_sums_with_value_bound(G, skew, val_bits):
+    """val_bits is a promise about the values, not a change of result."""
+    keys, vals, valid = _packed_case(G, skew, val_bits, n=20_011)
+    t = torch.from_numpy
+    sums, counts = mxu_agg.dense_group_sums(t(keys), t(vals), G, key_min=3,
+                                            valid=t(valid), val_bits=val_bits)
+    es, ec = _numpy_dense_keyed(keys, vals, G, 3, valid)
+    assert np.array_equal(sums.numpy(), es) and np.array_equal(counts.numpy(), ec)
+
+
+@pytest.mark.parametrize("G,kdt,vdt,key_min,masked,skew", KEYED_CASES)
+def test_plain_dense_group_sums_keyed_contract(G, kdt, vdt, key_min, masked, skew):
+    keys, vals, valid = _keyed_case(G, kdt, vdt, key_min, masked, skew)
+    t = torch.from_numpy
+    sums, counts = mxu_agg.dense_group_sums(
+        t(keys), t(vals), G, key_min=key_min, valid=None if valid is None else t(valid))
+    es, ec = _numpy_dense_keyed(keys, vals, G, key_min, valid)
+    assert np.array_equal(sums.numpy(), es) and np.array_equal(counts.numpy(), ec)
+    assert counts.numpy().sum() > 0
+
+
 def _rank_case(nq, seed=0):
     """A sorted (64, 128) int32 array, clipped block indices and queries
     below, above and on its lanes, and lane counts 0..128."""
@@ -126,6 +221,39 @@ def test_cuda_dense_group_sums_matches_plain(n, G, hi, all_miss):
     assert torch.equal(sk, sp) and torch.equal(ck, cp)
     es, ec = _numpy_dense(gid, vals, G)
     assert np.array_equal(sk.cpu().numpy(), es) and np.array_equal(ck.cpu().numpy(), ec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,kdt,vdt,key_min,masked,skew", KEYED_CASES)
+def test_cuda_dense_group_sums_keyed_matches_plain(G, kdt, vdt, key_min, masked, skew):
+    """The kernel on the columns as stored, at zipf and other skews, with
+    1 to 8 interleaved owners: bit for bit against the plain version."""
+    _need_cuda()
+    keys, vals, valid = _keyed_case(G, kdt, vdt, key_min, masked, skew, n=300_007)
+    k_t, v_t = torch.from_numpy(keys).cuda(), torch.from_numpy(vals).cuda()
+    m_t = None if valid is None else torch.from_numpy(valid).cuda()
+    before = mxu_agg.dense_group_sums.launches
+    sk, ck = mxu_agg.dense_group_sums(k_t, v_t, G, key_min=key_min, valid=m_t)
+    sp, cp = mxu_agg.dense_group_sums_plain(k_t, v_t, G, key_min=key_min, valid=m_t)
+    torch.cuda.synchronize()
+    assert mxu_agg.dense_group_sums.launches == before + 1
+    assert torch.equal(sk, sp) and torch.equal(ck, cp)
+    es, ec = _numpy_dense_keyed(keys, vals, G, key_min, valid)
+    assert np.array_equal(sk.cpu().numpy(), es) and np.array_equal(ck.cpu().numpy(), ec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,skew,val_bits", PACKED_CASES)
+def test_cuda_dense_group_sums_packed_matches_plain(G, skew, val_bits):
+    """With a value bound the kernel packs count and sum where they fit:
+    bit for bit against the plain version, at the cell's edge too."""
+    _need_cuda()
+    keys, vals, valid = (torch.from_numpy(a).cuda() for a in _packed_case(G, skew, val_bits))
+    sk, ck = mxu_agg.dense_group_sums(keys, vals, G, key_min=3, valid=valid,
+                                      val_bits=val_bits)
+    sp, cp = mxu_agg.dense_group_sums_plain(keys, vals, G, key_min=3, valid=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(ck, cp)
 
 
 @pytest.mark.cuda

@@ -77,6 +77,38 @@ def test_plain_histogram_matches_numpy(n, G, n_limbs, saturate, all_miss):
     assert port_mxu.grouped_histogram.launches == before
 
 
+# (n, G, limb channels, skew): zipf(1.2) group ids, one group with 90% of
+# the rows, every row in one group; n % 4 != 0 in two of them
+SKEW_CASES = [
+    (200_003, 1000, 14, "zipf"),
+    (200_000, 4, 14, "dominant"),
+    (100_001, 4, 31, "one_group"),
+]
+
+
+def _skewed_case(n, G, n_limbs, skew):
+    gid, words, plan = _histogram_case(n + G + n_limbs, n, G, n_limbs)
+    rng = np.random.default_rng(n)
+    if skew == "zipf":
+        gid = (np.minimum(rng.zipf(1.2, n), G) - 1).astype(np.int32)
+        gid[::13] = -1
+    elif skew == "dominant":
+        gid = np.where(rng.random(n) < 0.9, 1, rng.integers(0, G, n)).astype(np.int32)
+    else:
+        gid = np.full(n, 2, np.int32)
+    return gid, words, plan
+
+
+@pytest.mark.parametrize("n,G,n_limbs,skew", SKEW_CASES)
+def test_plain_histogram_skewed_matches_numpy(n, G, n_limbs, skew):
+    gid, words, plan = _skewed_case(n, G, n_limbs, skew)
+    totals, first = port_mxu.grouped_histogram(
+        torch.from_numpy(gid), torch.from_numpy(words), plan, G
+    )
+    et, ef = _numpy_histogram(gid, words, plan, G)
+    assert np.array_equal(totals.numpy(), et) and np.array_equal(first.numpy(), ef)
+
+
 @pytest.mark.parametrize(
     "change",
     ["gid_int64", "too_many_groups", "too_many_channels", "limb_outside_words"],
@@ -116,6 +148,19 @@ def test_cuda_kernel_matches_plain(n, G, n_limbs, saturate, all_miss):
     assert torch.equal(tk, tp) and torch.equal(fk, fp)
     et, ef = _numpy_histogram(gid, words, plan, G)
     assert np.array_equal(tk.cpu().numpy(), et) and np.array_equal(fk.cpu().numpy(), ef)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,G,n_limbs,skew", SKEW_CASES)
+def test_cuda_kernel_skewed_matches_plain(n, G, n_limbs, skew):
+    """Warp aggregation under skew: many lanes of a warp on one group."""
+    _need_cuda()
+    gid, words, plan = _skewed_case(n, G, n_limbs, skew)
+    gid_t, words_t = torch.from_numpy(gid).cuda(), torch.from_numpy(words).cuda()
+    tk, fk = port_mxu.grouped_histogram(gid_t, words_t, plan, G)
+    tp, fp = port_mxu.grouped_histogram_plain(gid_t, words_t, plan, G)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp) and torch.equal(fk, fp)
 
 
 SQL = [

@@ -139,18 +139,66 @@ def test_mxu_eligible_modes(monkeypatch, mode):
         assert not port.mxu_eligible(64, 99, 0, True, "cuda")
 
 
-@pytest.mark.parametrize("change", ["gid_int64", "vals_length", "no_groups", "too_many_groups"])
+@pytest.mark.parametrize("keys_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("vals_dtype", [np.int32, np.int64])
+def test_stored_column_types(keys_dtype, vals_dtype):
+    """The columns go to the kernel as stored, int32 or int64 keys and
+    values: the same sums as the reference (which casts to int32 after its
+    int64 rebase) and numpy."""
+    rng = np.random.default_rng(7)
+    n, g, key_min = 7_001, 900, -400
+    keys = (key_min + rng.integers(-20, g + 20, n)).astype(keys_dtype)
+    vals = rng.integers(0, 1 << 24, n).astype(vals_dtype)
+    s, c = _both(keys, vals, g, 24, key_min=key_min)
+    es, ec = _numpy_dense(keys.astype(np.int64), vals.astype(np.int64), g, key_min)
+    assert np.array_equal(s, es) and np.array_equal(c, ec)
+
+
+@pytest.mark.parametrize("keys_dtype", [np.int32, np.int64])
+def test_validity_mask_is_a_miss(keys_dtype):
+    """valid=False rows are misses: the port with the mask equals the
+    reference on keys masked below the domain (the route's formulation
+    before the mask moved into the kernel), and numpy."""
+    rng = np.random.default_rng(8)
+    n, g, key_min = 6_007, 512, 1_000
+    keys = (key_min + rng.integers(0, g, n)).astype(keys_dtype)
+    keys[::13] = key_min + g + 3
+    valid = rng.random(n) < 0.8
+    valid[::7] = False
+    vals = rng.integers(0, 1 << 20, n).astype(np.int64)
+    masked = np.where(valid, keys, key_min - 1).astype(keys_dtype)
+    rs, rc = ref.mxu_groupby_dense(jnp.asarray(masked), jnp.asarray(vals), g, 20,
+                                   interpret=True, key_min=jnp.int64(key_min))
+    ps, pc = port.mxu_groupby_dense(torch.from_numpy(keys), torch.from_numpy(vals), g, 20,
+                                    key_min=key_min, valid=torch.from_numpy(valid))
+    assert np.array_equal(ps.numpy(), np.asarray(rs))
+    assert np.array_equal(pc.numpy(), np.asarray(rc))
+    es, ec = _numpy_dense(masked.astype(np.int64), vals, g, key_min)
+    assert np.array_equal(ps.numpy(), es) and np.array_equal(pc.numpy(), ec)
+    assert pc.numpy().sum() == (valid & (keys - key_min < g)).sum()
+
+
+@pytest.mark.parametrize(
+    "change",
+    ["keys_int16", "vals_length", "no_groups", "too_many_groups", "valid_not_bool",
+     "key_min_beyond_int64"],
+)
 def test_dense_group_sums_rejects_bad_inputs(change):
-    gid = torch.zeros(10, dtype=torch.int32)
+    keys = torch.zeros(10, dtype=torch.int32)
     vals = torch.zeros(10, dtype=torch.int32)
+    valid, key_min = None, 0
     g = 4
-    if change == "gid_int64":
-        gid = gid.long()
+    if change == "keys_int16":
+        keys = keys.to(torch.int16)
     if change == "vals_length":
         vals = vals[:9]
     if change == "no_groups":
         g = 0
     if change == "too_many_groups":
         g = port.MXU_MAX_GROUPS + 1
+    if change == "valid_not_bool":
+        valid = torch.ones(10, dtype=torch.int32)
+    if change == "key_min_beyond_int64":
+        key_min = 1 << 63
     with pytest.raises(ValueError):
-        port.dense_group_sums(gid, vals, g)
+        port.dense_group_sums(keys, vals, g, key_min=key_min, valid=valid)
