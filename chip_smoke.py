@@ -1,6 +1,7 @@
 """Smoke run of sqlrs_tpu_torch on one NVIDIA GPU: build, kernel checks,
-TPC-H Q1/Q6 at scale factor 1, and the star rollup at bench.py's size, all
-through `Database(device="cuda").run`.
+TPC-H Q1/Q6 at scale factor 1, the star rollup at bench.py's size, and all
+22 TPC-H queries at scale factor 1, all through
+`Database(device="cuda").run`.
 
     python3 chip_smoke.py
 
@@ -39,6 +40,19 @@ Phases, each printing one line or a few:
                    dense_group_sums once per run.
   5. profile     — the dense ORDER BY rollup under torch.profiler: device
                    time by kernel, launches, syncs and busy share per run.
+  6. tpch22      — all 8 TPC-H tables at SF1 from the port's copy of the
+                   generator (sqlrs_tpu_torch/benchmarks/tpch_dbgen.py, seed
+                   printed), the columns the 22 queries read loaded into
+                   Database(device="cuda"); each query one cold and three
+                   warm runs, its rows, routes, kernel launches and peak
+                   device memory. Every query's rows must equal the port's
+                   own CPU run on the same tables (benchmarks/tpch.py's
+                   rule: floats rel 1e-9 or abs 1e-6), with equal routes;
+                   Q3, Q4 and Q18 must match numpy oracles; Q1 must log
+                   hashagg_mxu and launch grouped_histogram.
+  7. profile     — the 22's slowest warm query under torch.profiler, then
+                   one pass over all 22: device time by kernel and by aten
+                   op, and the host ops.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -876,45 +890,90 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "c
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
-def phase_profile(dev, card: str, db, runs: int = 5) -> None:
-    """The dense ORDER BY star rollup: the median of 5 unprofiled warm runs,
-    then torch.profiler over `runs` more: device time by kernel, kernel
-    launches, stream syncs and host-to-device copies per run, and the busy
-    share (device kernel time over the profiled wall time)."""
+# the port's functions whose share of a TPC-H run the profile reports: each
+# is wrapped in a torch.profiler.record_function range, here only and only
+# while the profiler runs (every caller looks the name up at call time)
+PROFILED_FUNCTIONS = (
+    "ops.sort._lex_argsort", "ops.grouped_agg._lex_argsort", "ops.join._lex_argsort",
+    "ops.grouped_agg._agg_phase1", "ops.grouped_agg._agg_phase2",
+    "ops.pipelines._sorted_ranks_left", "ops.join._pairs_phase_a", "ops.join._expand_body",
+    "ops.mxu_grouped.mxu_grouped_aggregate", "exec.fused_route.try_agg_join_route",
+    "exec.fused_route.try_order_agg_join_route", "ops.elementwise.like_match",
+    "ops.elementwise.substring_column",
+)
+
+
+def _annotated(names):
+    """Wrap each `module.attr` of sqlrs_tpu_torch in a record_function
+    range; returns the undo list."""
+    import importlib
+
+    undo = []
+    for path in names:
+        mod_name, attr = path.rsplit(".", 1)
+        mod = importlib.import_module(f"sqlrs_tpu_torch.{mod_name}")
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, _fn=fn, _name=path, **k):
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **k)
+
+        setattr(mod, attr, wrapped)
+        undo.append((mod, attr, fn))
+    return undo
+
+
+def phase_profile(card: str, label: str, run, runs: int = 5, functions=()) -> None:
+    """run(): one warm run of a query. The median of 5 unprofiled warm
+    runs, then torch.profiler over `runs` more: device time by kernel,
+    kernel launches, stream syncs and host-to-device copies per run, and
+    the busy share (device kernel time over the profiled wall time); with
+    `functions`, also each named port function's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    sql = STAR_SQL["dense_order"][0]
     for _ in range(2):
-        db.run(sql)
+        run()
     warm = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        db.run(sql)
+        run()
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            db.run(sql)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    undo = _annotated(functions)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, attr, fn in undo:
+            setattr(mod, attr, fn)
     events = prof.key_averages()
 
     def device_us(e) -> float:
         return float(getattr(e, "self_device_time_total", 0) or
                      getattr(e, "self_cuda_time_total", 0) or 0)
 
+    def device_us_incl(e) -> float:
+        return float(getattr(e, "device_time_total", 0) or
+                     getattr(e, "cuda_time_total", 0) or 0)
+
+    # a record_function range shows twice: on the host (the kernels launched
+    # inside it) and on the device (its span there), which is not a kernel
     kernels = sorted(((e.key, device_us(e), e.count) for e in events
-                      if str(e.device_type).endswith("CUDA") and device_us(e) > 0),
+                      if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+                      and e.key not in functions),
                      key=lambda k: -k[1])
     calls = {e.key: e.count for e in events}
     device_ms = sum(us for _, us, _ in kernels) / 1e3 / runs
     if device_ms == 0:
         raise AssertionError("torch.profiler traced no device time")
     print(
-        f"phase profile: dense ORDER BY rollup warm {float(np.median(warm)):.3f} ms "
+        f"phase profile: {label} warm {float(np.median(warm)):.3f} ms "
         f"(median of 5 unprofiled: {', '.join(f'{t:.3f}' for t in warm)}); profiled "
         f"over {runs} runs: device {device_ms:.3f} ms per run, busy share "
         f"{device_ms * runs / wall_ms:.3f}, kernel launches "
@@ -923,8 +982,261 @@ def phase_profile(dev, card: str, db, runs: int = 5) -> None:
         f"{calls.get('cudaMemcpyAsync', 0) / runs:.1f} per run [{card}]",
         flush=True,
     )
-    for name, us, count in kernels[:10]:
-        print(f"  {us / 1e3 / runs:8.3f} ms  x{count / runs:4.1f}  {name[:110]}", flush=True)
+    for name, us, count in kernels[:12]:
+        print(f"  {us / 1e3 / runs:8.3f} ms  x{count / runs:6.1f}  {name[:110]}", flush=True)
+    ops = sorted(((e.key, device_us_incl(e), e.count) for e in events
+                  if e.key.startswith("aten::") and device_us_incl(e) > 0),
+                 key=lambda k: -k[1])
+    print("  by aten op (device time of the kernels each launches, nested ops "
+          "counted in each):", flush=True)
+    for name, us, count in ops[:10]:
+        print(f"  {us / 1e3 / runs:8.3f} ms  x{count / runs:6.1f}  {name}", flush=True)
+    if functions:
+        print("  by port function (device time of the kernels launched inside, "
+              "nested calls counted in each; host ms inclusive):", flush=True)
+        for e in sorted((e for e in events if e.key in functions
+                         and not str(e.device_type).endswith("CUDA")),
+                        key=lambda e: -device_us_incl(e)):
+            print(f"  {device_us_incl(e) / 1e3 / runs:8.3f} ms  x{e.count / runs:6.1f}  "
+                  f"{e.key} (host {e.cpu_time_total / 1e3 / runs:.3f} ms)", flush=True)
+    host = sorted(((e.key, float(e.self_cpu_time_total), e.count) for e in events
+                   if e.self_cpu_time_total > 0), key=lambda k: -k[1])
+    print(f"  host: {sum(us for _, us, _ in host) / 1e3 / runs:.3f} ms per run in traced "
+          f"host ops (the rest of the wall time is Python); the largest:", flush=True)
+    for name, us, count in host[:8]:
+        print(f"  {us / 1e3 / runs:8.3f} ms  x{count / runs:6.1f}  {name[:110]}", flush=True)
+
+
+# ---- phase 6: the 22 TPC-H queries at SF1 ----------------------------------
+
+TPCH22_SF = 1.0
+TPCH22_SEED = SEED
+TPCH22_ROUTES = {1: "hashagg_mxu", 3: "agg_join_firstapp", 18: "agg_join_firstapp"}
+
+
+def tpch_statements(qn: int) -> list[str]:
+    """The statements of query qn (Q15 is its view, the query and the drop)."""
+    from sqlrs_tpu_torch.benchmarks import tpch_queries
+
+    q = tpch_queries.ALL[qn]
+    return q if isinstance(q, list) else [q]
+
+
+def tpch_run(db, qn: int):
+    """(rows, ms): the rows of the last statement that returns a schema, as
+    benchmarks/tpch.py's run_query takes them, and the milliseconds of
+    db.run over the statements to a synchronised device (the rows are read
+    back to the host after the clock stops)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [db.run(stmt) for stmt in tpch_statements(qn)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for batches in outs:
+        out = [tuple(r) for b in batches for r in b.to_pylist()]
+        if out or (batches and batches[0].columns):
+            rows = out
+    return rows, ms
+
+
+def tpch_compare(got, exp, name: str) -> None:
+    """benchmarks/tpch.py's compare rule: floats to rel 1e-9 or abs 1e-6,
+    everything else exactly; raises on the first difference."""
+    import math
+
+    if len(got) != len(exp):
+        raise AssertionError(f"{name}: {len(got)} rows, expected {len(exp)}")
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if len(g) != len(e):
+            raise AssertionError(f"{name} row {i}: width {len(g)} != {len(e)}")
+        for j, (gv, ev) in enumerate(zip(g, e)):
+            if isinstance(ev, float) or isinstance(gv, float):
+                ok = (gv is None and ev is None) or (
+                    gv is not None and ev is not None
+                    and math.isclose(float(gv), float(ev), rel_tol=1e-9, abs_tol=1e-6))
+            else:
+                ok = gv == ev
+            if not ok:
+                raise AssertionError(f"{name} row {i} col {j}: {gv!r} != {ev!r}")
+
+
+def unread_columns(tables) -> list[str]:
+    """The generated columns that no query text names."""
+    import re
+
+    from sqlrs_tpu_torch.benchmarks import tpch_queries
+
+    words = set()
+    for q in tpch_queries.ALL.values():
+        for stmt in q if isinstance(q, list) else [q]:
+            words |= set(re.findall(r"[a-z_]+", stmt))
+    return [c for cols in tables.values() for c in cols if c not in words]
+
+
+def oracle_tpch_q3(t):
+    """Q3 in numpy: BUILDING customers' orders before 1995-03-15, their
+    lines shipped after it, revenue per order, top 10 by revenue desc then
+    order date."""
+    from sqlrs_tpu_torch.types.values import date_str_to_days
+
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    day = date_str_to_days("1995-03-15")
+    cust = c["c_custkey"][c["c_mktsegment"] == "BUILDING"]
+    okeys = o["o_orderkey"][np.isin(o["o_custkey"], cust) & (o["o_orderdate"] < day)]
+    m = (li["l_shipdate"] > day) & np.isin(li["l_orderkey"], okeys)
+    keys, inv = np.unique(li["l_orderkey"][m], return_inverse=True)
+    rev = np.bincount(inv, weights=(li["l_extendedprice"] * (1 - li["l_discount"]))[m])
+    pos = np.searchsorted(o["o_orderkey"], keys)
+    dates, prio = o["o_orderdate"][pos], o["o_shippriority"][pos]
+    top = np.lexsort((dates, -rev))[:10]
+    return [(int(keys[i]), float(rev[i]), int(dates[i]), int(prio[i])) for i in top]
+
+
+def oracle_tpch_q4(t):
+    """Q4 in numpy: orders of 1993 Q3 with a line committed before its
+    receipt, counted per priority."""
+    from sqlrs_tpu_torch.types.values import date_str_to_days
+
+    o, li = t["orders"], t["lineitem"]
+    m = ((o["o_orderdate"] >= date_str_to_days("1993-07-01"))
+         & (o["o_orderdate"] < date_str_to_days("1993-10-01")))
+    late = np.unique(li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]])
+    prios, counts = np.unique(o["o_orderpriority"][m & np.isin(o["o_orderkey"], late)],
+                              return_counts=True)
+    return [(str(p), int(n)) for p, n in zip(prios, counts)]
+
+
+def oracle_tpch_q18(t):
+    """Q18 in numpy: orders whose lines sum to more than 300 units, with
+    their customer, top 100 by total price desc then order date."""
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    keys, inv = np.unique(li["l_orderkey"], return_inverse=True)
+    qty = np.bincount(inv, weights=li["l_quantity"]).astype(np.int64)
+    big, bq = keys[qty > 300], qty[qty > 300]
+    pos = np.searchsorted(o["o_orderkey"], big)
+    cust = o["o_custkey"][pos]
+    cpos = np.searchsorted(c["c_custkey"], cust)
+    price, dates = o["o_totalprice"][pos], o["o_orderdate"][pos]
+    top = np.lexsort((dates, -price))[:100]
+    return [(str(c["c_name"][cpos[i]]), int(cust[i]), int(big[i]), int(dates[i]),
+             float(price[i]), int(bq[i])) for i in top]
+
+
+def phase_tpch22(dev, card: str) -> dict:
+    """All 22 TPC-H queries at SF1 through Database(device="cuda").run: one
+    cold and three warm runs each, timed to a synchronised device, then the
+    same queries through Database(device="cpu") on the same tables (with
+    SQLRS_TPU_MXU=interpret, so that the CPU run takes the same routes with
+    the kernels' plain versions): rows by benchmarks/tpch.py's rule and
+    route logs must be equal. Q3, Q4 and Q18 are also held to numpy
+    oracles. Returns each kernel's launches in the cuda runs, the cuda
+    database, and the query with the longest median warm time."""
+    import os
+
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import tpch_dbgen
+    from sqlrs_tpu_torch.ops import pallas_kernels
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+
+    t0 = time.perf_counter()
+    tables = tpch_dbgen.gen_tables(TPCH22_SF, seed=TPCH22_SEED)
+    gen_s = time.perf_counter() - t0
+    skip = unread_columns(tables)
+    for cols in tables.values():
+        for cn in skip:
+            cols.pop(cn, None)
+    t0 = time.perf_counter()
+    db = sqlrs_tpu_torch.Database(device=dev)
+    tpch_dbgen.load_into(db, tables)
+    load_s = time.perf_counter() - t0
+    # the tables' device copies are made at their first scan: make them
+    # now, so that a cold run finds its tables on the card
+    t0 = time.perf_counter()
+    for name in tables:
+        db.catalog.table(name).storage.scan(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    sizes = ", ".join(f"{n} {len(next(iter(c.values())))}" for n, c in tables.items())
+    print(f"phase tpch22: SF {TPCH22_SF}, seed {TPCH22_SEED}: {sizes} rows (made in "
+          f"{gen_s:.1f} s, loaded in {load_s:.1f} s, copied to the card in "
+          f"{upload_s:.1f} s); columns no query reads, left out: {', '.join(skip)}",
+          flush=True)
+    oracles = {3: oracle_tpch_q3, 4: oracle_tpch_q4, 18: oracle_tpch_q18}
+
+    # the main path: counts from here on are the path's own launches
+    grouped_histogram.launches = 0
+    dense_group_sums.launches = 0
+    pallas_kernels.row_rank_ge.launches = 0
+    pallas_kernels.masked_row_sum.launches = 0
+    results = {}
+    for qn in range(1, 23):
+        torch.cuda.reset_peak_memory_stats(dev)
+        h0, d0 = grouped_histogram.launches, dense_group_sums.launches
+        times, rows = [], None
+        for _ in range(4):  # one cold run, then three warm runs
+            db.last_fused_routes = []
+            got, ms = tpch_run(db, qn)
+            times.append(ms)
+            if rows is not None and got != rows:
+                raise AssertionError(f"Q{qn}: a warm run gave other rows than the cold run")
+            rows = got
+        routes = list(db.last_fused_routes)
+        want = TPCH22_ROUTES.get(qn)
+        if want is not None and want not in routes:
+            raise AssertionError(f"Q{qn} logged {routes}, expected {want!r} among them")
+        if qn in oracles:
+            tpch_compare(rows, oracles[qn](tables), f"Q{qn} (numpy oracle)")
+        results[qn] = {
+            "rows": rows, "routes": routes, "ms": times,
+            "hist": grouped_histogram.launches - h0, "dense": dense_group_sums.launches - d0,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        }
+    launches = {"grouped_histogram": grouped_histogram.launches,
+                "dense_group_sums": dense_group_sums.launches,
+                "row_rank_ge": pallas_kernels.row_rank_ge.launches,
+                "masked_row_sum": pallas_kernels.masked_row_sum.launches}
+    if results[1]["hist"] < 4:
+        raise AssertionError(f"Q1 launched grouped_histogram {results[1]['hist']} times in 4 runs")
+
+    # the comparison leg: the same tables and queries on the CPU
+    t0 = time.perf_counter()
+    saved = os.environ.get("SQLRS_TPU_MXU")
+    os.environ["SQLRS_TPU_MXU"] = "interpret"
+    try:
+        cpu_db = sqlrs_tpu_torch.Database(device="cpu")
+        tpch_dbgen.load_into(cpu_db, tables)
+        for qn in range(1, 23):
+            cpu_db.last_fused_routes = []
+            tpch_compare(results[qn]["rows"], tpch_run(cpu_db, qn)[0], f"Q{qn} (cuda vs cpu)")
+            if cpu_db.last_fused_routes != results[qn]["routes"]:
+                raise AssertionError(f"Q{qn}: routes {results[qn]['routes']} on cuda, "
+                                     f"{cpu_db.last_fused_routes} on the cpu")
+    finally:
+        if saved is None:
+            os.environ.pop("SQLRS_TPU_MXU")
+        else:
+            os.environ["SQLRS_TPU_MXU"] = saved
+    cpu_s = time.perf_counter() - t0
+    for qn, r in results.items():
+        ms = r["ms"]
+        print(
+            f"  Q{qn}: cold {ms[0]:.1f} ms, warm {', '.join(f'{t:.1f}' for t in ms[1:])} ms; "
+            f"{len(r['rows'])} rows; routes {r['routes']}; grouped_histogram {r['hist']}, "
+            f"dense_group_sums {r['dense']}; peak device memory {r['peak_gb']:.2f} GB",
+            flush=True,
+        )
+    total_warm = sum(float(np.median(r["ms"][1:])) for r in results.values())
+    print(
+        f"  all 22 match the cpu run (device=cpu, {cpu_s:.1f} s with its load) by "
+        f"benchmarks/tpch.py's rule, with equal routes; Q3, Q4, Q18 match numpy oracles; "
+        f"sum of warm medians {total_warm:.1f} ms; launches grouped_histogram "
+        f"{launches['grouped_histogram']}, dense_group_sums {launches['dense_group_sums']} [{card}]",
+        flush=True,
+    )
+    slowest = max(results, key=lambda q: float(np.median(results[q]["ms"][1:])))
+    return launches, db, slowest
 
 
 def build_all() -> None:
@@ -967,7 +1279,19 @@ def main() -> int:
     k34 = phase_rank_kernels(dev, card, star)
     hist_launches, tpch_db = phase_tpch(dev, card, li, orders, gen_s)
     launches, star_db = phase_star(dev, card, star, tpch_db, li, orders)
-    phase_profile(dev, card, star_db)
+    phase_profile(card, "dense ORDER BY rollup",
+                  lambda: star_db.run(STAR_SQL["dense_order"][0]))
+    del star_db, tpch_db, star
+    launches22, db22, slowest = phase_tpch22(dev, card)
+    phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
+                  lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
+    phase_profile(card, f"all 22 TPC-H queries at SF {TPCH22_SF}, one after another",
+                  lambda: [db22.run(stmt) for qn in range(1, 23)
+                           for stmt in tpch_statements(qn)], runs=1,
+                  functions=PROFILED_FUNCTIONS)
+    hist_launches += launches22.pop("grouped_histogram")
+    for name, n in launches22.items():
+        launches[name] += n
 
     def entry(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda", "source": f"sqlrs_tpu_torch/csrc/{source}",

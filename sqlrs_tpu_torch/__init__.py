@@ -15,7 +15,7 @@ the same results. It imports torch and never jax (nor sqlrs_tpu).
   Python, copied.
 
     import sqlrs_tpu_torch
-    db = sqlrs_tpu_torch.Database(device="cuda")
+    db = sqlrs_tpu_torch.Database()          # device="cuda" by default
     db.run("create table t(a int, b int); insert into t values (1, 10)")
     rows = db.run_lines("select a, sum(b) from t group by a")
 

@@ -25,7 +25,9 @@ scaled ints, so their per-group sums are exact integer arithmetic and the
 finalize step divides by 10^k — by a device tensor, because PyTorch's CUDA
 division by a Python scalar multiplies by the reciprocal, which is not the
 same rounding. Ineligible plans return None and run the general executor
-(which, in this package, raises "not yet ported" at the join).
+(the hash join and GROUP BY of exec/executor.py), as in the reference; the
+children a bailed attempt already executed wait in the executor's one-shot
+cache, so the general path scans each of them once.
 
 Route names logged in `db.last_fused_routes` are the reference's, letter
 for letter. The reference's host fetches are kept, and no others: the stats

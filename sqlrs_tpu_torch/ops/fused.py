@@ -32,6 +32,30 @@ def concat_arrays(parts):
     return tuple(torch.cat(cols) for cols in zip(*parts))
 
 
+_SCAN_ROW = 128
+
+
+def prefix_sum(x):
+    """Inclusive prefix sums of a 1-D tensor, with a fixed association
+    order for floats. Integer sums are exact in any order and take
+    torch.cumsum. A 1-D float torch.cumsum on CUDA is a decoupled
+    look-back scan, whose order of additions changes from run to run, so
+    float sums scan 128-wide rows instead (a per-row scan, the same order
+    every run) and add each row's offset, the exclusive scan of the row
+    totals, done the same way."""
+    if not x.is_floating_point():
+        return torch.cumsum(x, 0)
+    n = x.shape[0]
+    pad = (-n) % _SCAN_ROW
+    if pad:
+        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
+    rows = torch.cumsum(x.view(-1, _SCAN_ROW), 1)
+    if rows.shape[0] > 1:
+        off = prefix_sum(rows[:, -1].contiguous())
+        rows[1:] += off[:-1, None]
+    return rows.reshape(-1)[:n]
+
+
 def mask_count(keep_data, keep_valid) -> int:
     """Surviving-row count of a selection mask."""
     return int(torch.logical_and(keep_data, keep_valid).sum())
@@ -39,9 +63,17 @@ def mask_count(keep_data, keep_valid) -> int:
 
 def compact_indices(keep_data, keep_valid, count: int):
     """Row indices where the mask holds, ascending, sliced to `count` (the
-    JAX package's stable flag sort returns the same permutation prefix)."""
+    JAX package's stable flag sort returns the same permutation prefix).
+    Each kept row scatters its index to its rank among the kept rows, and
+    every other row to one dump slot past the end: with `count` known on
+    the host, nothing waits for the device (torch.nonzero would)."""
     keep = torch.logical_and(keep_data, keep_valid)
-    return torch.nonzero(keep).squeeze(1)[:count]
+    n = keep.shape[0]
+    rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    slot = torch.where(keep & (rank < count), rank, count)
+    out = torch.zeros(count + 1, dtype=torch.int64, device=keep.device)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=keep.device))
+    return out[:count]
 
 
 def compact_gather_arrays(keep_data, keep_valid, arrays, count: int):

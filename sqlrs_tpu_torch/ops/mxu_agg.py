@@ -48,15 +48,22 @@ def mxu_interpret_flag() -> bool:
     return os.environ.get("SQLRS_TPU_MXU", "auto") == "interpret"
 
 
+def mxu_backend_ok(device) -> bool:
+    """The backend test of both kernel paths (this one and the general
+    GROUP BY's ops/mxu_grouped.py), where the reference asks for a TPU:
+    SQLRS_TPU_MXU "0" never, "interpret" on any device, "auto" (the
+    default) only for data on a CUDA device."""
+    if os.environ.get("SQLRS_TPU_MXU", "auto") == "0":
+        return False
+    return mxu_interpret_flag() or torch.device(device).type == "cuda"
+
+
 def mxu_eligible(n_groups: int, val_max, val_min, dense: bool, device) -> bool:
     """Selection guard shared by make_join_groupby and the fused route:
     dense dim domain, non-negative int values below 2^24, at most 2^16
-    groups (the reference's bounds), and data on a CUDA device unless
-    SQLRS_TPU_MXU says otherwise ("0" disables, "interpret" allows any
-    device)."""
-    if os.environ.get("SQLRS_TPU_MXU", "auto") == "0":
-        return False
-    if not mxu_interpret_flag() and torch.device(device).type != "cuda":
+    groups (the reference's bounds), and the backend mxu_backend_ok
+    admits."""
+    if not mxu_backend_ok(device):
         return False
     return (
         dense

@@ -37,12 +37,14 @@ reciprocal, which is not the same rounding.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data import Column
 from sqlrs_tpu_torch.data.batch import torch_dtype_for
+from sqlrs_tpu_torch.ops.mxu_agg import mxu_backend_ok
 from sqlrs_tpu_torch.types import LogicalType
 
 MXU_AGG_MAX_GROUPS = 1024       # composite-domain cap (the reference's)
@@ -55,6 +57,12 @@ _SCALES = (0, 2, 4, 6)          # decimal scales probed by the stats pass
 _INT64_MAX = 2**63 - 1
 _BLOCK = 256                    # CUDA threads per block
 _MAX_ROWS_PER_BLOCK = 1 << 24   # 255 * 2^24 < 2^32: no uint32 cell overflows
+
+
+def _min_rows() -> int:
+    """Below this many rows the general GROUP BY keeps its sorted path
+    (the stats pass and its fetch do not pay off)."""
+    return int(os.environ.get("SQLRS_TPU_MXU_AGG_MIN_ROWS", str(1 << 17)))
 
 
 # --------------------------------------------------------------------------
@@ -377,13 +385,13 @@ def mxu_grouped_aggregate(key_cols, agg_specs, alive=None):
     """Try the exact histogram path for a general GROUP BY; returns
     (group_cols, agg_cols, n_groups) or None when ineligible. agg_specs
     entries: (name, Column|None, result_type [, distinct]) — the reference's
-    contract. The reference also returns None below a row threshold and off
-    the TPU; this package has no other grouped path yet, so every eligible
-    input takes this one."""
-    if not key_cols:
+    contract. As there, it returns None below SQLRS_TPU_MXU_AGG_MIN_ROWS
+    rows (default 2^17) and off the backend that ops/mxu_agg.mxu_backend_ok
+    admits, and the caller takes the sorted path (ops/grouped_agg.py)."""
+    if not key_cols or not mxu_backend_ok(key_cols[0].data.device):
         return None
     n = len(key_cols[0])
-    if n < 1 or n >= MXU_AGG_MAX_ROWS:
+    if n < max(_min_rows(), 1) or n >= MXU_AGG_MAX_ROWS:
         return None
     if any(c.type not in _KEY_KINDS for c in key_cols):
         return None

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from sqlrs_tpu_torch.errors import ExecutorError
+from sqlrs_tpu_torch.ops.fused import prefix_sum
 
 _BLK = 128                      # rows per block of the rank stage
 _INT64_MIN = -(2**63)
@@ -133,7 +134,7 @@ def _payload_sums(payloads, ranks, nb: int, g: int, shared: bool):
         acc_dt = torch.float64 if e.is_floating_point() else torch.int64
         e2d = e.view(nb, _BLK)
         ebs = e2d.sum(1, dtype=acc_dt)
-        ebp = torch.cat([torch.cumsum(ebs, 0) - ebs, ebs.sum().reshape(1)])
+        ebp = torch.cat([prefix_sum(ebs) - ebs, ebs.sum().reshape(1)])
         part = torch.where(under, e2d[brow], 0).sum(1, dtype=acc_dt)
         pr = ebp[bcol] + part
         out.append(pr[1:] - pr[:g] if shared else pr[g:] - pr[:g])

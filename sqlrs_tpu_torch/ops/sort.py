@@ -8,8 +8,9 @@ as the JAX package's one variadic stable `lax.sort` with `num_keys=k`.
 NULLs sort first in both directions (arrow SortOptions default the
 reference inherits). Filter compaction, which the JAX package also does by
 a stable flag sort here, is `torch.nonzero` of the mask
-(ops/elementwise.selection_to_indices, ops/fused.compact_indices): the
-same rows in the same order.
+(ops/elementwise.selection_to_indices), or, where the count is already on
+the host, a scatter of each kept row to its rank (ops/fused.compact_indices):
+the same rows in the same order.
 
 Float keys follow `lax.sort`'s order, which is not IEEE total order:
 -0.0 and +0.0 tie (the stable sort keeps their row order), and every NaN,
@@ -103,14 +104,29 @@ def _directed_key(col: Column, asc: bool):
     )
 
 
+def _sort_operand(key):
+    """An integer tensor whose ascending order is lax.sort's order of `key`
+    (float keys through _float_order_key, integer keys as they are)."""
+    if key.is_floating_point():
+        return _float_order_key(key.to(torch.float64))
+    return key
+
+
 def _lex_argsort(keys: list) -> torch.Tensor:
-    """Stable lexicographic argsort of int64 key tensors (first key most
+    """Stable lexicographic argsort of key tensors (first key most
     significant): one stable argsort pass per key, least significant
-    first."""
+    first. The permutation of lax.sort over the keys with the row position
+    as the last key."""
     n = keys[0].shape[0]
-    perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    perm = None
     for key in reversed(keys):
-        perm = perm[torch.argsort(key[perm], stable=True)]
+        k = _sort_operand(key)
+        if perm is None:
+            perm = torch.argsort(k, stable=True)
+        else:
+            perm = perm[torch.argsort(k[perm], stable=True)]
+    if perm is None:
+        perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
     return perm
 
 

@@ -11,8 +11,8 @@ v1-style CSV sessions preload every CSV as a table via `create_csv_table`
 (reference tests/sqllogictest/src/lib.rs:10-31 auto-loads tests/csv/*.csv).
 
 The device is explicit: `Database(device=...)` places every tensor the
-engine makes on that torch device, and a CUDA device without CUDA is an
-error, never a quiet run on the CPU.
+engine makes on that torch device, "cuda" by default, and a CUDA device
+without CUDA is an error, never a quiet run on the CPU.
 """
 
 from __future__ import annotations
@@ -44,11 +44,14 @@ class Database:
         mesh=None,
         n_devices: int | None = None,
         *,
-        device,
+        device="cuda",
     ) -> None:
         """`device` is the torch device (or its name) every tensor of this
-        database lives on. `mesh`/`n_devices` (distributed execution) and
-        `profile` are the JAX package's options that are not ported yet."""
+        database lives on: the current CUDA device unless the caller asks
+        for another (the tests ask for "cpu"). Without CUDA the default
+        raises; nothing falls back to the CPU. `mesh`/`n_devices`
+        (distributed execution) and `profile` are the JAX package's options
+        that are not ported yet."""
         if mesh is not None or n_devices is not None:
             raise not_ported("distributed execution (mesh / n_devices)")
         if profile:

@@ -7,9 +7,9 @@ sqlrs_tpu_torch.Database(device="cpu").
 Where the reference routes, the port must log the same route names and give
 the same rows: integer columns and k-dp decimal sums identical, other
 floats to rel 1e-12 (payload sums are taken in another order). Where the
-reference runs its general join path instead, the port has no general join
-yet: it must raise its "not yet ported" ExecutorError and log no route.
-These are the SQL families of tests/test_fused_route.py.
+reference runs its general join path instead, so does the port: no route
+logged by either, and the same rows (floats to rel 1e-12). These are the
+SQL families of tests/test_fused_route.py.
 """
 
 import numpy as np
@@ -85,14 +85,9 @@ def _same(ref, port, sql, rel=0.0):
 
 
 def _unrouted(ref, port, sql):
-    """The reference runs sql on its general path (no route); the port has
-    no general join and must say so, logging no route either."""
-    ref.last_fused_routes, port.last_fused_routes = [], []
-    ref.run(sql)
-    assert ref.last_fused_routes == [], sql
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.run(sql)
-    assert port.last_fused_routes == [], sql
+    """The reference runs sql on its general path (no route); so does the
+    port, with the same rows and no route logged either."""
+    assert _same(ref, port, sql, rel=1e-12) == [], sql
 
 
 @pytest.mark.parametrize("dim_keys", [
@@ -261,6 +256,8 @@ def test_multi_value_columns(multi_dbs, sql, route):
 ], ids=["two_minmax", "two_distinct", "left_join", "cross_residual",
         "distinct_unordered", "float_distinct"])
 def test_ineligible_shapes_raise_not_ported(multi_dbs, sql):
+    """Shapes the route turns down run the general join and GROUP BY, in
+    the port as in the reference."""
     _unrouted(*multi_dbs, sql)
 
 
@@ -388,12 +385,12 @@ def _scan_counter(monkeypatch):
 
 
 def test_duplicate_dim_keys_raise_after_one_scan_each(monkeypatch):
-    """Duplicate 'dim' keys must not route (pairs multiply): the reference
-    runs its general join, the port raises "not yet ported". The route
-    executes both children before its stats show the duplicates; the ORDER
-    BY route, then the GROUP BY route, then the general path all ask for
-    them again, and the one-shot route cache must hand the same batches
-    back instead of scanning twice."""
+    """Duplicate 'dim' keys must not route (pairs multiply): both engines
+    run their general join, with the same rows. The route executes both
+    children before its stats show the duplicates; the ORDER BY route, then
+    the GROUP BY route, then the general path all ask for them again, and
+    the one-shot route cache must hand the same batches back instead of
+    scanning twice."""
     ref, port = _dbs({
         "f": ([("k", "BIGINT"), ("v", "BIGINT")],
               {"k": [1, 1, 2, 3], "v": [10, 20, 30, 40]}),
@@ -404,8 +401,7 @@ def test_duplicate_dim_keys_raise_after_one_scan_each(monkeypatch):
     assert not ref.last_fused_routes
     calls = _scan_counter(monkeypatch)
     port.last_fused_routes = []
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.run(SQL)
+    assert port.run_lines(SQL) == ["1 60 4", "2 30 1"]
     assert port.last_fused_routes == []
     assert len(calls) == 2, calls
 
@@ -420,7 +416,8 @@ def test_routed_query_scans_each_table_once(monkeypatch):
 def test_route_fuzz_differential():
     """tests/test_fused_route.py's seeded fuzz: random dim spans, NULL
     densities, value ranges and aggregate lists. Where the reference routes
-    the port must match it; where it does not, the port raises."""
+    the port must match it; where it does not, both run the general path
+    to the same rows."""
     rng = np.random.default_rng(77)
     agg_pool = [
         "sum(f.a)", "sum(f.b)", "count(f.a)", "count(f.b)", "count(*)",
@@ -657,9 +654,9 @@ def test_float_measures_numpy_oracle():
 
 
 def test_semi_join_q18_shape_raises_not_ported():
-    """An IN-subquery pushed below the star join (the Q18 shape): the
-    reference routes the join above a semi join, whose general path the
-    port does not have yet."""
+    """An IN-subquery pushed below the star join (the Q18 shape): both
+    engines route the join above the general semi join, to the same rows
+    and route names."""
     rng = np.random.default_rng(97)
     dim = (np.arange(30) * 2 + 4).astype(np.int64)
     fk = dim[rng.integers(0, len(dim), 3000)].copy()
@@ -672,12 +669,7 @@ def test_semi_join_q18_shape_raises_not_ported():
     })
     sql = ("select d.k, sum(f.x), count(*) from f join d on f.k = d.k "
            "where d.k in (select k from s) group by d.k")
-    ref.last_fused_routes, port.last_fused_routes = [], []
-    ref.run(sql)
-    assert any("firstapp" in r for r in ref.last_fused_routes)
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.run(sql)
-    assert port.last_fused_routes == []
+    assert any("firstapp" in r for r in _same(ref, port, sql, rel=1e-12))
 
 
 def test_mxu_variant_under_interpret_and_disabled(monkeypatch):

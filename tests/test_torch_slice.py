@@ -201,12 +201,29 @@ def test_import_tables_round_trip(sql_dbs):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports, and none of them brings in jax,
+    the JAX package or the top-level benchmarks package; chip_smoke.py
+    names none of them in an import either."""
+    import ast
+    import pathlib
+
     code = (
-        "import sys, sqlrs_tpu_torch\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sqlrs_tpu')]\n"
+        "import importlib, pkgutil, sys, sqlrs_tpu_torch\n"
+        "for m in pkgutil.walk_packages(sqlrs_tpu_torch.__path__, 'sqlrs_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'sqlrs_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    tree = ast.parse((pathlib.Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "sqlrs_tpu", "benchmarks"}, roots
 
 
 def test_cuda_device_without_cuda_raises():
@@ -214,6 +231,15 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("this machine has CUDA")
     with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="CUDA"):
         sqlrs_tpu_torch.Database(device="cuda")
+
+
+def test_default_device_without_cuda_raises():
+    """Database() runs on the card by default, and never falls back to the
+    CPU when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="CUDA"):
+        sqlrs_tpu_torch.Database()
 
 
 @pytest.mark.parametrize(
@@ -227,9 +253,12 @@ def test_cuda_device_without_cuda_raises():
     ],
 )
 def test_unported_operators_raise(sql_dbs, sql, what):
-    _, port = sql_dbs
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.run(sql)
+    """The operators that once raised "not yet ported" now run: the same
+    rows and route log as the reference."""
+    ref, port = sql_dbs
+    ref.last_fused_routes, port.last_fused_routes = [], []
+    _compare_batches(*_run_both(ref, port, sql))
+    assert port.last_fused_routes == ref.last_fused_routes, what
 
 
 @pytest.mark.parametrize(
