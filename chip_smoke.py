@@ -1,7 +1,8 @@
 """Smoke run of sqlrs_tpu_torch on one NVIDIA GPU: build, kernel checks,
 TPC-H Q1/Q6 at scale factor 1, the star rollup at bench.py's size, and all
 22 TPC-H queries at scale factor 1, all through
-`Database(device="cuda").run`.
+`Database(device="cuda").run`, then the sharded engine over 4 shards on
+the same card.
 
     python3 chip_smoke.py
 
@@ -53,6 +54,18 @@ Phases, each printing one line or a few:
   7. profile     — the 22's slowest warm query under torch.profiler, then
                    one pass over all 22: device time by kernel and by aten
                    op, and the host ops.
+  8. dist        — the sharded engine (sqlrs_tpu_torch/parallel/) over a
+                   mesh of 4 shards that share the one card
+                   (make_mesh(4, devices=["cuda:0"] * 4)): bench.py's star
+                   through the four join + GROUP BY strategies of
+                   parallel/dist_ops.py, each equal to numpy exactly; then
+                   the 22 TPC-H queries at SF1 on phase 6's tables through
+                   Database(mesh=...), one cold and two warm runs each, every
+                   run's rows equal to phase 6's single-device rows by the
+                   same rule, with warm ms beside the single-device ms, the
+                   join strategies, kernel launches, peak device memory and
+                   a profiled run's syncs; then a profile of the sharded
+                   suite with the collectives and the rank stage annotated.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -923,18 +936,19 @@ def _annotated(names):
     return undo
 
 
-def phase_profile(card: str, label: str, run, runs: int = 5, functions=()) -> None:
-    """run(): one warm run of a query. The median of 5 unprofiled warm
-    runs, then torch.profiler over `runs` more: device time by kernel,
-    kernel launches, stream syncs and host-to-device copies per run, and
-    the busy share (device kernel time over the profiled wall time); with
-    `functions`, also each named port function's share."""
+def phase_profile(card: str, label: str, run, runs: int = 5, functions=(),
+                  warmups: int = 2, timed: int = 5) -> None:
+    """run(): one warm run of a query. `warmups` runs, the median of `timed`
+    unprofiled warm runs, then torch.profiler over `runs` more: device time
+    by kernel, kernel launches, stream syncs and host-to-device copies per
+    run, and the busy share (device kernel time over the profiled wall
+    time); with `functions`, also each named port function's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warmups):
         run()
     warm = []
-    for _ in range(5):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -974,7 +988,7 @@ def phase_profile(card: str, label: str, run, runs: int = 5, functions=()) -> No
         raise AssertionError("torch.profiler traced no device time")
     print(
         f"phase profile: {label} warm {float(np.median(warm)):.3f} ms "
-        f"(median of 5 unprofiled: {', '.join(f'{t:.3f}' for t in warm)}); profiled "
+        f"(median of {timed} unprofiled: {', '.join(f'{t:.3f}' for t in warm)}); profiled "
         f"over {runs} runs: device {device_ms:.3f} ms per run, busy share "
         f"{device_ms * runs / wall_ms:.3f}, kernel launches "
         f"{sum(calls.get(c, 0) for c in _LAUNCH_CALLS) / runs:.1f}, stream syncs "
@@ -1236,7 +1250,169 @@ def phase_tpch22(dev, card: str) -> dict:
         flush=True,
     )
     slowest = max(results, key=lambda q: float(np.median(results[q]["ms"][1:])))
-    return launches, db, slowest
+    return launches, db, slowest, tables, results
+
+
+# ---- phase 8: the sharded engine, 4 shards on one card --------------------
+
+DIST_SHARDS = 4
+# the sharded engine's functions the profile reports besides phase 7's: the
+# collectives, the rank stage's callers and the per-shard operators
+DIST_FUNCTIONS = PROFILED_FUNCTIONS + (
+    "parallel.collectives.all_to_all", "parallel.collectives.psum",
+    "parallel.collectives.psum_scatter", "parallel.collectives.all_gather",
+    "parallel.collectives.ppermute", "parallel.collectives.reduce_sum",
+    "parallel.collectives.reduce_max", "parallel.collectives.gather",
+    "ops.grouped_agg.partial_grouped_fixed", "parallel.dist_join.broadcast_agg_join",
+    "parallel.dist_join.ring_agg_join", "parallel.dist_join.shuffle_join_phase_a",
+    "parallel.dist_join.shuffle_join_phase_b", "parallel.dist_ops.dist_sort_rows",
+)
+
+
+def _kernel_counts() -> dict:
+    from sqlrs_tpu_torch.ops import pallas_kernels
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+
+    return {"grouped_histogram": grouped_histogram.launches,
+            "dense_group_sums": dense_group_sums.launches,
+            "row_rank_ge": pallas_kernels.row_rank_ge.launches,
+            "masked_row_sum": pallas_kernels.masked_row_sum.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from sqlrs_tpu_torch.ops import pallas_kernels
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+
+    for fn in (grouped_histogram, dense_group_sums, pallas_kernels.row_rank_ge,
+               pallas_kernels.masked_row_sum):
+        fn.launches = 0
+
+
+def phase_dist_star(dev, card: str, star: dict, mesh) -> None:
+    """bench.py's star (2^25 fact rows, 2^16 dense dim keys) through the
+    four join + GROUP BY strategies of parallel/dist_ops.py over the mesh:
+    each one cold and two warm runs, its (sums, counts) equal to numpy's
+    exactly."""
+    from sqlrs_tpu_torch.parallel import dist_ops
+
+    gid, v = star["gid"], star["v"]
+    keys = np.arange(STAR_GROUPS, dtype=np.int64)
+    exp_s = np.bincount(gid, weights=v, minlength=STAR_GROUPS).astype(np.int64)
+    exp_c = np.bincount(gid, minlength=STAR_GROUPS).astype(np.int64)
+    fk = torch.from_numpy(keys[gid]).to(dev)
+    fv = torch.from_numpy(v).to(dev)
+    dk = torch.from_numpy(keys).to(dev)
+    g = STAR_GROUPS
+    # a (sender, receiver) bucket's even share, doubled; the checked
+    # strategies grow it by 4 until nothing overflows
+    cap0 = 2 * STAR_ROWS // (mesh.size * mesh.size)
+    strategies = {
+        "broadcast": lambda: dist_ops.dist_join_groupby_broadcast(mesh, fk, fv, dk, g),
+        "shuffle_checked": lambda: dist_ops.dist_join_groupby_shuffle_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0),
+        "salted_checked": lambda: dist_ops.dist_join_groupby_salted_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0, hot_capacity=1024),
+        "ring": lambda: dist_ops.dist_join_groupby_ring(mesh, fk, fv, dk, g),
+    }
+    print(f"phase dist_star: fact {STAR_ROWS} rows x dim {STAR_GROUPS} keys over "
+          f"{mesh.size} shards ({mesh}); starting bucket capacity {cap0}", flush=True)
+    for name, fn in strategies.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(3):  # one cold run, then two warm runs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums, cnts = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(sums.cpu().numpy(), exp_s)
+                    and np.array_equal(cnts.cpu().numpy(), exp_c)):
+                raise AssertionError(f"dist_join_groupby_{name} != numpy")
+        print(f"  {name}: cold {times[0]:.1f} ms, warm {times[1]:.1f}, {times[2]:.1f} ms; "
+              f"sums and counts equal numpy's exactly; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{card}]", flush=True)
+
+
+def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
+    """All 22 TPC-H queries at SF1 through Database(mesh=mesh).run on the
+    tables of phase 6: one cold and two warm runs each, every run's rows
+    equal to phase 6's single-device rows by benchmarks/tpch.py's rule
+    (floats rel 1e-9 or abs 1e-6, the rest exact). Then one profiled warm
+    run of each query (syncs, launches, device time) and a profile of the
+    whole sharded suite. Returns each kernel's launches in the timed runs,
+    which are this path's."""
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import tpch_dbgen
+
+    t0 = time.perf_counter()
+    db = sqlrs_tpu_torch.Database(mesh=mesh)
+    tpch_dbgen.load_into(db, tables)
+    for name in tables:
+        db.catalog.table(name).storage.scan(dev)
+    torch.cuda.synchronize()
+    print(f"phase dist_tpch: SF {TPCH22_SF} over {mesh.size} shards that share one card "
+          f"({mesh}); loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    _zero_kernel_counts()  # the sharded path: counts from here on are its own
+    results = {}
+    for qn in range(1, 23):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = _kernel_counts()
+        times = []
+        for _ in range(3):  # one cold run, then two warm runs
+            got, ms = tpch_run(db, qn)
+            times.append(ms)
+            tpch_compare(got, single[qn]["rows"], f"Q{qn} (sharded vs single device)")
+        after = _kernel_counts()
+        results[qn] = {
+            "ms": times, "strategies": list(db.last_join_strategies),
+            "launches": {k: after[k] - before[k] for k in after},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        }
+    launches = _kernel_counts()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for qn in range(1, 23):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tpch_run(db, qn)
+        calls, dev_us = {}, 0.0
+        for e in prof.key_averages():
+            calls[e.key] = calls.get(e.key, 0) + e.count
+            if str(e.device_type).endswith("CUDA"):
+                dev_us += float(getattr(e, "self_device_time_total", 0)
+                                or getattr(e, "self_cuda_time_total", 0) or 0)
+        results[qn]["syncs"] = sum(calls.get(c, 0) for c in _SYNC_CALLS)
+        results[qn]["kernel_launches"] = sum(calls.get(c, 0) for c in _LAUNCH_CALLS)
+        results[qn]["device_ms"] = dev_us / 1e3
+
+    for qn, r in results.items():
+        ms, one = r["ms"], single[qn]["ms"]
+        lc = ", ".join(f"{k} {n}" for k, n in r["launches"].items())
+        print(
+            f"  Q{qn}: warm {float(np.median(ms[1:])):.1f} ms sharded (cold {ms[0]:.1f}, warm "
+            f"{', '.join(f'{t:.1f}' for t in ms[1:])}) vs {float(np.median(one[1:])):.1f} ms "
+            f"on one device; strategies {r['strategies']}; launches {lc}; peak device "
+            f"memory {r['peak_gb']:.2f} GB; profiled run: {r['syncs']} stream syncs, "
+            f"{r['kernel_launches']} kernel launches, device {r['device_ms']:.1f} ms",
+            flush=True,
+        )
+    dist_sum = sum(float(np.median(r["ms"][1:])) for r in results.values())
+    one_sum = sum(float(np.median(single[q]["ms"][1:])) for q in results)
+    print(
+        f"  all 22 match the single-device rows in every run; sum of warm medians "
+        f"{dist_sum:.1f} ms sharded vs {one_sum:.1f} ms on one device; launches "
+        f"{', '.join(f'{k} {n}' for k, n in launches.items())}; peak device memory "
+        f"{max(r['peak_gb'] for r in results.values()):.2f} GB at most [{card}]",
+        flush=True,
+    )
+    phase_profile(card, f"all 22 TPC-H queries at SF {TPCH22_SF} over {mesh.size} shards "
+                  "on one card, one after another",
+                  lambda: [db.run(stmt) for qn in range(1, 23) for stmt in tpch_statements(qn)],
+                  runs=1, functions=DIST_FUNCTIONS, warmups=0, timed=1)
+    return launches
 
 
 def build_all() -> None:
@@ -1281,17 +1457,26 @@ def main() -> int:
     launches, star_db = phase_star(dev, card, star, tpch_db, li, orders)
     phase_profile(card, "dense ORDER BY rollup",
                   lambda: star_db.run(STAR_SQL["dense_order"][0]))
-    del star_db, tpch_db, star
-    launches22, db22, slowest = phase_tpch22(dev, card)
+    del star_db, tpch_db
+    launches22, db22, slowest, tables22, results22 = phase_tpch22(dev, card)
     phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
                   lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
     phase_profile(card, f"all 22 TPC-H queries at SF {TPCH22_SF}, one after another",
                   lambda: [db22.run(stmt) for qn in range(1, 23)
                            for stmt in tpch_statements(qn)], runs=1,
                   functions=PROFILED_FUNCTIONS)
-    hist_launches += launches22.pop("grouped_histogram")
-    for name, n in launches22.items():
-        launches[name] += n
+    del db22
+    torch.cuda.empty_cache()
+    from sqlrs_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS)
+    phase_dist_star(dev, card, star, mesh)
+    del star
+    launches_dist = phase_dist_tpch(dev, card, mesh, tables22, results22)
+    for extra in (launches22, launches_dist):
+        hist_launches += extra["grouped_histogram"]
+        for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
+            launches[name] += extra[name]
 
     def entry(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda", "source": f"sqlrs_tpu_torch/csrc/{source}",

@@ -568,6 +568,178 @@ def _reduce_rows(x, want_min: bool):
     return x.amin(1) if want_min else x.amax(1)
 
 
+def partial_grouped_fixed(alive, row_idx, keys, aggs, g_cap: int):
+    """Shard-local FIXED-CAPACITY partial GROUP BY — the per-shard core of
+    the distributed aggregation (parallel/dist_executor._grouped_agg_dist):
+    g_cap-sized outputs, no host sync; the capacity-overflow flag drives
+    the caller's retry with a larger g_cap.
+
+    The same techniques as sorted_grouped_aggregate: the row index rides as
+    the least-significant sort key (run start = first appearance), run ends
+    come from merge-ranked queries at the capacity g_cap, run sums are
+    block-prefix differences, and run min/max uses whole-block bests plus
+    the boundary rows.
+
+    alive:   bool[n] live-row mask (dead rows sort last, never form runs)
+    row_idx: int64[n] global row ids
+    keys:    list of (orderable key, valid bool, raw data)
+    aggs:    list of ("count_star" | "count" | "sum" | "avg" | "min" | "max"
+             | "vmin" | "vmax", data, valid, rank_or_None, out_dtype)
+             (data/valid/rank are None for count_star; rank only for v*)
+
+    Returns (key_outs, first_row, live, states, n_runs, overflow) where
+    key_outs = [(data[g_cap], valid[g_cap])] (BOOLEAN keys as int32) and
+    states = per agg a dict of g_cap-sized partial-state tensors."""
+    from sqlrs_tpu_torch.ops.pipelines import _sorted_ranks_left
+
+    n = alive.shape[0]
+    dev = alive.device
+    sort_keys: list = [torch.logical_not(alive).to(torch.int32)]
+    for orderable, valid, _raw in keys:
+        sort_keys.append(valid.to(torch.int32))
+        sort_keys.append(torch.where(valid, orderable, torch.zeros_like(orderable)))
+    sort_keys.append(row_idx)  # least-significant: run start = first appearance
+    num_keys = len(sort_keys)
+
+    payloads: list = [alive.to(torch.int32)]
+    key_pay_ix = []
+    for _orderable, valid, raw in keys:
+        key_pay_ix.append(num_keys + len(payloads))
+        payloads.append(_sortable(raw))
+        payloads.append(valid.to(torch.int32))
+    agg_pay_ix = []
+    for kind, data, valid, rank, _dt in aggs:
+        if data is None:
+            agg_pay_ix.append(None)
+            continue
+        agg_pay_ix.append(num_keys + len(payloads))
+        if kind in ("vmin", "vmax"):
+            code_u = data.to(torch.int64) & 0xFFFFFFFF
+            payloads.append((rank.to(torch.int64) << 32) | code_u)
+        else:
+            payloads.append(_sortable(data))
+        payloads.append(valid.to(torch.int32))
+
+    perm = _lex_argsort(sort_keys)
+    out = [k[perm] for k in sort_keys] + [p[perm] for p in payloads]
+    row_s = out[num_keys - 1]
+    alive_b = out[num_keys] > 0
+
+    new_run = torch.zeros(n, dtype=torch.bool, device=dev)
+    new_run[0] = True
+    for arr in out[1:num_keys - 1]:  # key fields only (not dead flag/row)
+        new_run[1:] |= arr[1:] != arr[:-1]
+    new_run = new_run & alive_b
+    rid = torch.cumsum(new_run.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_runs = new_run.sum(dtype=torch.int64)
+    overflow = n_runs > g_cap
+    rid_eff = torch.where(alive_b, rid, _INT32_MAX)  # dead rows leave every run
+
+    pad_n = (-n) % _BLK
+    nb = (n + pad_n) // _BLK
+
+    def _pad(arr, fill):
+        if pad_n == 0:
+            return arr
+        return torch.cat([arr, torch.full((pad_n,), fill, dtype=arr.dtype, device=dev)])
+
+    rid_p = _pad(rid_eff, _INT32_MAX)
+    r = torch.arange(g_cap, dtype=torch.int32, device=dev)
+    ends = _sorted_ranks_left(rid_p.view(-1, _BLK), r + 1)  # side='right'
+    prev_end = torch.cat([torch.zeros(1, dtype=ends.dtype, device=dev), ends[:-1]])
+    live = r.to(torch.int64) < torch.clamp(n_runs, max=g_cap)
+    start_pos = torch.clamp(prev_end, 0, n - 1)
+    lane = torch.arange(_BLK, dtype=torch.int32, device=dev)
+
+    def run_sum(arr):
+        a2 = _pad(arr, 0).view(-1, _BLK)
+        bs = a2.sum(1, dtype=arr.dtype)
+        bp = torch.cat([prefix_sum(bs) - bs, bs.sum().reshape(1)])
+
+        def prefix_at(pos):
+            b = pos // _BLK
+            rem = (pos % _BLK).to(torch.int32)
+            rows = a2[torch.clamp(b, 0, nb - 1)]
+            part = torch.where(lane[None, :] < rem[:, None], rows, 0).sum(1, dtype=arr.dtype)
+            return bp[b] + part
+
+        return prefix_at(ends) - prefix_at(prev_end)
+
+    rid_first = rid_p[::_BLK]
+    rid_last = rid_p[_BLK - 1::_BLK]
+    whole_blk = rid_first == rid_last
+    e1 = torch.clamp(ends, min=1) - 1
+    bs_ = prev_end // _BLK
+    rs_ = (prev_end % _BLK).to(torch.int32)
+    be_ = e1 // _BLK
+    re_ = (e1 % _BLK).to(torch.int32) + 1
+    same_blk = bs_ == be_
+
+    def run_minmax(arr, want_min, sentinel):
+        a2 = _pad(arr, sentinel).view(-1, _BLK)
+        bbest = _reduce_rows(a2, want_min)
+        tgt = torch.where(
+            whole_blk & (rid_first >= 0) & (rid_first < g_cap),
+            rid_first.to(torch.int64),
+            g_cap,
+        )
+        init = torch.full((g_cap + 1,), sentinel, dtype=a2.dtype, device=dev)
+        scat = init.scatter_reduce_(0, tgt, bbest, "amin" if want_min else "amax")[:g_cap]
+        head_rows = a2[torch.clamp(bs_, 0, nb - 1)]
+        not_same = torch.logical_not(same_blk)
+        hm = (lane[None, :] >= rs_[:, None]) & (
+            not_same[:, None] | (lane[None, :] < re_[:, None])
+        )
+        head = _reduce_rows(torch.where(hm, head_rows, sentinel), want_min)
+        tail_rows = a2[torch.clamp(be_, 0, nb - 1)]
+        tm = (lane[None, :] < re_[:, None]) & not_same[:, None]
+        tail = _reduce_rows(torch.where(tm, tail_rows, sentinel), want_min)
+        stacked = torch.stack([scat, head, tail])
+        return stacked.amin(0) if want_min else stacked.amax(0)
+
+    first_row = torch.where(live, row_s[start_pos], _INT64_MAX)
+
+    key_outs = []
+    for ix in key_pay_ix:
+        raw_s, valid_s = out[ix], out[ix + 1]
+        kd = torch.where(live, raw_s[start_pos], torch.zeros_like(raw_s[:1]))
+        kv = live & (valid_s[start_pos] > 0)
+        key_outs.append((kd, kv))
+
+    states = []
+    for (kind, data, valid, rank, out_dt), ix in zip(aggs, agg_pay_ix):
+        if kind == "count_star":
+            cnt = torch.where(live, ends - prev_end, 0)
+            states.append({"cnt": cnt})
+            continue
+        data_s = out[ix]
+        valid_s = (out[ix + 1] > 0) & alive_b
+        cnt = torch.where(live, run_sum(valid_s.to(torch.int64)), 0)
+        if kind == "count":
+            states.append({"cnt": cnt})
+        elif kind in ("sum", "avg"):
+            acc = data_s.to(out_dt)
+            sm = run_sum(torch.where(valid_s, acc, torch.zeros_like(acc)))
+            states.append({"cnt": cnt, "sum": torch.where(live, sm, torch.zeros_like(sm))})
+        elif kind in ("min", "max"):
+            if data_s.is_floating_point():
+                sent = float("inf") if kind == "min" else float("-inf")
+            else:
+                ii = torch.iinfo(data_s.dtype)
+                sent = ii.max if kind == "min" else ii.min
+            v = torch.where(valid_s, data_s, torch.full_like(data_s, sent))
+            states.append({"cnt": cnt, "best": run_minmax(v, kind == "min", sent)})
+        elif kind in ("vmin", "vmax"):
+            sent = _INT64_MAX if kind == "vmin" else -_INT64_MAX
+            v = torch.where(valid_s, data_s, sent)
+            best = run_minmax(v, kind == "vmin", sent)
+            states.append({"cnt": cnt, "best": (best & 0xFFFFFFFF).to(torch.int32)})
+        else:
+            raise ExecutorError(f"unknown partial aggregate kind {kind}")
+
+    return key_outs, first_row, live, states, n_runs, overflow
+
+
 def _orderable_inverse(key_field, t: LogicalType):
     """Invert ops/sort.orderable_key for the non-VARCHAR types (identity up
     to dtype; UBIGINT has no tensor form in this package)."""

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from sqlrs_tpu_torch.data import Column
+from sqlrs_tpu_torch.ops.fused import prefix_sum
 from sqlrs_tpu_torch.ops.sort import _sort_operand, orderable_key
 
 _INT64_MAX = 2**63 - 1
@@ -72,9 +73,27 @@ def seg_count_valid(valid, gid, n_groups):
 
 
 def seg_sum(data, valid, gid, n_groups):
+    """Per-group sums of the valid rows. Integer sums are exact in any
+    order and take `index_add_`. On CUDA a float `index_add_` is atomics,
+    which add in another order on every run, so float sums take a fixed
+    order instead: a stable sort by group id, the fixed-order prefix sum
+    of the sorted group-by (ops/fused.prefix_sum), and one difference of
+    the prefix at each group's bounds."""
     x = torch.where(valid, data, torch.zeros_like(data))
-    out = torch.zeros(n_groups, dtype=data.dtype, device=gid.device)
-    return out.index_add_(0, gid, x)
+    dev = gid.device
+    if not x.is_floating_point():
+        out = torch.zeros(n_groups, dtype=data.dtype, device=dev)
+        return out.index_add_(0, gid, x)
+    n = x.shape[0]
+    if n == 0:
+        return torch.zeros(n_groups, dtype=data.dtype, device=dev)
+    order = torch.argsort(gid, stable=True)
+    cs = prefix_sum(x[order])
+    bounds = torch.searchsorted(
+        gid[order], torch.arange(n_groups + 1, dtype=gid.dtype, device=dev)
+    )
+    at = torch.where(bounds > 0, cs[torch.clamp(bounds - 1, 0, n - 1)], 0)
+    return at[1:] - at[:-1]
 
 
 def _seg_reduce(x, gid, n_groups, identity, reduce: str):

@@ -150,7 +150,14 @@ class ClientContext:
         )
 
     def _execute_physical(self, prepared: PreparedStatementData):
-        from sqlrs_tpu_torch.exec.executor import Executor
+        if self.db.mesh is not None:
+            from sqlrs_tpu_torch.parallel.dist_executor import DistributedExecutor
 
-        batch = Executor(self.db).execute(prepared.physical_plan)
+            batch = DistributedExecutor(self.db, self.db.mesh).run(
+                prepared.physical_plan
+            )
+        else:
+            from sqlrs_tpu_torch.exec.executor import Executor
+
+            batch = Executor(self.db).execute(prepared.physical_plan)
         return [batch] if len(batch.schema) > 0 else []

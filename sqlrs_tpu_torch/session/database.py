@@ -49,14 +49,30 @@ class Database:
         """`device` is the torch device (or its name) every tensor of this
         database lives on: the current CUDA device unless the caller asks
         for another (the tests ask for "cpu"). Without CUDA the default
-        raises; nothing falls back to the CPU. `mesh`/`n_devices`
-        (distributed execution) and `profile` are the JAX package's options
-        that are not ported yet."""
-        if mesh is not None or n_devices is not None:
-            raise not_ported("distributed execution (mesh / n_devices)")
+        raises; nothing falls back to the CPU.
+
+        `mesh` (a parallel/mesh.Mesh) or `n_devices` turns on distributed
+        execution: tables are row-sharded over the mesh's devices and plans
+        run through parallel/dist_executor.DistributedExecutor, with
+        results equal to the single-device engine's, row order included.
+        `n_devices=n` with device "cpu" puts n shards on the CPU; with a
+        CUDA device it takes the first n CUDA devices and raises if there
+        are fewer (several shards share one card only through a mesh that
+        lists it several times). With a mesh, `device` is shard 0's: the
+        controller's device, where delegated operators run and results are
+        collected. `profile` is not ported yet."""
         if profile:
             raise not_ported("query profiling (profile=True)")
-        self.device = _resolve_device(device)
+        if mesh is None and n_devices is not None:
+            from sqlrs_tpu_torch.parallel.mesh import make_mesh
+
+            dev = _resolve_device(device)
+            mesh = (
+                make_mesh(n_devices, devices=[dev] * n_devices) if dev.type == "cpu"
+                else make_mesh(n_devices)
+            )
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else _resolve_device(device)
         self.catalog = Catalog()
         for fn in BUILTIN_TABLE_FUNCTIONS:
             self.catalog.register_table_function(fn.name, fn)
@@ -173,7 +189,13 @@ class Database:
             phys.plan_strings = dict(plan.plan_strings)
             phys.plan_strings["physical_plan"] = explain_physical(phys.children[0])
 
-        batch = Executor(self).execute(phys)
+        if self.mesh is not None:
+            from sqlrs_tpu_torch.parallel.dist_executor import DistributedExecutor
+
+            self.last_join_strategies = []  # strategy picks, in exec order
+            batch = DistributedExecutor(self, self.mesh).run(phys)
+        else:
+            batch = Executor(self).execute(phys)
         return [batch] if len(batch.schema) > 0 else []
 
     def _optimize(self, plan):

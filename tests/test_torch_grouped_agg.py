@@ -195,6 +195,102 @@ def test_group_ids_and_dedup_mask():
     assert np.array_equal(np.asarray(r_mask), p_mask.numpy())
 
 
+@pytest.mark.parametrize("g_cap", [8, 1024])
+@pytest.mark.parametrize("n", [1, 300, 2000])
+def test_partial_grouped_fixed_matches_reference(n, g_cap):
+    """The sharded GROUP BY's per-shard core: the same runs, keys, first
+    rows, live flags, states, run count and overflow flag as the
+    reference's (float states to rel 1e-9), dead rows and NULL keys
+    included; g_cap 8 overflows."""
+    import jax.numpy as jnp
+
+    from sqlrs_tpu.ops.sort import orderable_key as ref_key
+    from sqlrs_tpu_torch.ops.sort import orderable_key as port_key
+
+    rng = np.random.default_rng(n + g_cap)
+    k1 = _both("BIGINT", [None if rng.random() < 0.1 else int(rng.integers(-20, 20))
+                          for _ in range(n)])
+    k2 = _both("VARCHAR", [None if rng.random() < 0.1 else "xyz"[rng.integers(0, 3)]
+                           for _ in range(n)])
+    v = _both("BIGINT", [None if rng.random() < 0.1 else int(rng.integers(-99, 99))
+                         for _ in range(n)])
+    d = _both("DOUBLE", [None if rng.random() < 0.1 else float(np.round(rng.uniform(-500, 500), 2))
+                         for _ in range(n)])
+    s = _both("VARCHAR", [None if rng.random() < 0.2 else "abcd"[rng.integers(0, 4)] * 2
+                          for _ in range(n)])
+    alive = rng.random(n) < 0.85
+    row_idx = (np.arange(n) * 3 + 11).astype(np.int64)
+
+    def side(i, key, np_mod, i64, f64, i32, alive_, rows):
+        keys = [(key(c[i])[0], c[i].valid, c[i].data) for c in (k1, k2)]
+        aggs = [("count_star", None, None, None, None)]
+        for kind, c, dt in (("count", v, i64), ("sum", v, i64), ("avg", d, f64),
+                            ("min", v, i64), ("max", d, f64), ("sum", d, f64)):
+            aggs.append((kind, c[i].data, c[i].valid, None, dt))
+        for kind in ("vmin", "vmax"):
+            aggs.append((kind, s[i].data, s[i].valid, key(s[i])[0], i32))
+        return keys, aggs, alive_, rows
+
+    rk, ra, r_alive, r_rows = side(0, ref_key, jnp, jnp.int64, jnp.float64, jnp.int32,
+                                   jnp.asarray(alive), jnp.asarray(row_idx))
+    pk, pa, p_alive, p_rows = side(1, port_key, torch, torch.int64, torch.float64,
+                                   torch.int32, torch.from_numpy(alive),
+                                   torch.from_numpy(row_idx))
+    r = ref_ga.partial_grouped_fixed(r_alive, r_rows, rk, ra, g_cap)
+    p = port_ga.partial_grouped_fixed(p_alive, p_rows, pk, pa, g_cap)
+    assert int(r[4]) == int(p[4]) and bool(r[5]) == bool(p[5])
+    assert bool(p[5]) == (int(p[4]) > g_cap)
+    live = np.asarray(r[2])
+    assert np.array_equal(live, p[2].numpy())
+    assert np.array_equal(np.asarray(r[1]), p[1].numpy())
+    for (rd, rv), (pd, pv) in zip(r[0], p[0]):
+        assert np.array_equal(np.asarray(rv), pv.numpy())
+        assert np.array_equal(np.asarray(rd)[live], pd.numpy()[live])
+    for rs, ps in zip(r[3], p[3]):
+        assert rs.keys() == ps.keys()
+        for key in rs:
+            x, y = np.asarray(rs[key]), ps[key].numpy()
+            if x.dtype.kind == "f":
+                assert np.allclose(y[live], x[live], rtol=1e-9, atol=0), key
+            else:
+                assert np.array_equal(y[live], x[live]), key
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32"])
+@pytest.mark.parametrize("n,n_groups", [(0, 3), (1, 1), (5000, 37), (5000, 4999)])
+def test_seg_sum_matches_reference(dtype, n, n_groups):
+    """The legacy path's per-group sums: integers exactly, floats in a
+    fixed order (a stable sort by group, then the fixed-order prefix sum)
+    to rel 1e-9 (1e-4 for FLOAT) of the group's sum of magnitudes plus 8
+    ulps of the prefix's (a difference of prefix sums errs with the
+    prefix); empty groups sum to 0."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n + n_groups)
+    gid = rng.integers(0, max(n_groups - 2, 1), n).astype(np.int32)
+    if np.dtype(dtype).kind == "f":
+        data = (np.round(rng.uniform(-500, 500, n), 2) * 10.0 ** rng.integers(0, 3, n))
+        data = data.astype(dtype)
+    else:
+        data = rng.integers(-(2**20), 2**20, n).astype(dtype)
+    valid = rng.random(n) < 0.9
+    exp = np.asarray(ref_grouping.seg_sum(
+        jnp.asarray(data), jnp.asarray(valid), jnp.asarray(gid), n_groups))
+    got = port_grouping.seg_sum(
+        torch.from_numpy(data), torch.from_numpy(valid), torch.from_numpy(gid), n_groups
+    ).numpy()
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    if np.dtype(dtype).kind == "f":
+        rel = 1e-9 if dtype == "float64" else 1e-4
+        scale = np.abs(np.where(valid, data, 0)).astype(np.float64)
+        mag = np.zeros(n_groups)
+        np.add.at(mag, gid, scale)
+        bound = rel * mag + 8 * np.finfo(dtype).eps * mag.sum()
+        assert np.all(np.abs(got.astype(np.float64) - exp) <= bound)
+    else:
+        assert np.array_equal(got, exp)
+
+
 # ---- through SQL -------------------------------------------------------------
 
 
