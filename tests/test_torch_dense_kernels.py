@@ -163,13 +163,22 @@ def test_plain_dense_group_sums_keyed_contract(G, kdt, vdt, key_min, masked, ske
     assert counts.numpy().sum() > 0
 
 
-def _rank_case(nq, seed=0):
-    """A sorted (64, 128) int32 array, clipped block indices and queries
-    below, above and on its lanes, and lane counts 0..128."""
+def _rank_case(nq, seed=0, what=()):
+    """A sorted (64, 128) int32 array, block indices in [0, 64) and queries
+    below, above and on its lanes, and lane counts 0..128. `what` may add:
+    unsorted (rows not sorted), one_row (nb = 1), clip (block indices below
+    0 and at or above nb), edges (rem of -5, 1, 127 and 200 too), and s2 (the
+    uniform shape: 2^16 sorted rows, block indices uniform over them, each
+    query a lane of its row +- 2, rem uniform in [0, 128])."""
     rng = np.random.default_rng(seed + nq)
-    nb = 64
-    sp2d = np.sort(rng.integers(-50_000, 50_000, nb * 128).astype(np.int32)).reshape(nb, 128)
+    nb = 1 if "one_row" in what else (1 << 16 if "s2" in what else 64)
+    x = rng.integers(-50_000, 50_000, nb * 128).astype(np.int32)
+    sp2d = (x if "unsorted" in what else np.sort(x)).reshape(nb, 128)
     b = rng.integers(0, nb, nq).astype(np.int32)
+    v2d = rng.integers(-(1 << 31), (1 << 31) - 1, (nb, 128)).astype(np.int32)
+    if "s2" in what:
+        q = sp2d[b, rng.integers(0, 128, nq)] + rng.integers(-2, 3, nq).astype(np.int32)
+        return sp2d, v2d, b, q, rng.integers(0, 129, nq).astype(np.int32)
     q = rng.integers(-60_000, 60_000, nq).astype(np.int32)
     q[::4] = sp2d[b[::4], 64]
     q[1::9] = np.iinfo(np.int32).min
@@ -177,20 +186,39 @@ def _rank_case(nq, seed=0):
     rem = rng.integers(0, 129, nq).astype(np.int32)
     rem[::3] = 0
     rem[1::3] = 128
-    v2d = rng.integers(-(1 << 31), (1 << 31) - 1, (nb, 128)).astype(np.int32)
+    if "edges" in what:
+        rem[2::12] = -5
+        rem[5::12] = 1
+        rem[8::12] = 127
+        rem[11::12] = 200
+    if "clip" in what:
+        b[3::11] = -3
+        b[5::13] = nb + 2
+        b[7::17] = np.iinfo(np.int32).max
     return sp2d, v2d, b, q, rem
 
 
 def _numpy_rank(sp2d, v2d, b, q, rem):
+    b = np.clip(b, 0, sp2d.shape[0] - 1)
     rank = (sp2d[b] >= q[:, None]).sum(1).astype(np.int32)
     lane = np.arange(128)
     s = np.where(lane[None, :] < rem[:, None], v2d[b].astype(np.int64), 0).sum(1)
     return rank, (s & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("nq", [1, 31, 33, 1000])
-def test_plain_rank_kernels_match_numpy(nq):
-    sp2d, v2d, b, q, rem = _rank_case(nq)
+def _rank_param(nq, *what):
+    return pytest.param(nq, what, id="-".join([*what, str(nq)]))
+
+
+# (nq, what): the first four keep their ids
+RANK_CASES = [_rank_param(nq) for nq in (1, 31, 33, 1000, 3, 4, 5, 32, 129)] + [
+    _rank_param(1000, "unsorted"), _rank_param(129, "one_row", "edges"),
+    _rank_param(1000, "clip", "edges"), _rank_param((1 << 17) + 5, "s2")]
+
+
+@pytest.mark.parametrize("nq,what", RANK_CASES)
+def test_plain_rank_kernels_match_numpy(nq, what):
+    sp2d, v2d, b, q, rem = _rank_case(nq, what=what)
     t = torch.from_numpy
     before = (pallas_kernels.row_rank_ge.launches, pallas_kernels.masked_row_sum.launches)
     rank = pallas_kernels.row_rank_ge(t(sp2d), t(b), t(q))
@@ -256,11 +284,32 @@ def test_cuda_dense_group_sums_packed_matches_plain(G, skew, val_bits):
     assert torch.equal(sk, sp) and torch.equal(ck, cp)
 
 
+def _on_card_at(a, offset):
+    """a on the card, at `offset` elements into a larger buffer (0: its own
+    allocation): 128 keeps a 16-B aligned base, 3 does not."""
+    t = torch.from_numpy(a).cuda()
+    if not offset:
+        return t
+    buf = torch.zeros(offset + t.numel(), dtype=t.dtype, device=t.device)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [1, 31, 33, 1000])
-def test_cuda_rank_kernels_match_plain(nq):
+@pytest.mark.parametrize("nq,what", RANK_CASES + [
+    _rank_param(1000, "clip", "edges", "aligned_view"),
+    _rank_param(1000, "clip", "edges", "misaligned_view"),
+    _rank_param(33, "unsorted", "misaligned_view")])
+def test_cuda_rank_kernels_match_plain(nq, what):
+    """Bit for bit against the plain version, one launch each; the views
+    put the rows at an aligned and a misaligned offset (the scalar-load
+    form of the kernel)."""
     _need_cuda()
-    sp2d, v2d, b, q, rem = (torch.from_numpy(a).cuda() for a in _rank_case(nq))
+    offset = 128 if "aligned_view" in what else (3 if "misaligned_view" in what else 0)
+    case = _rank_case(nq, what=what)
+    sp2d, v2d = (_on_card_at(a, offset) for a in case[:2])
+    b, q, rem = (torch.from_numpy(a).cuda() for a in case[2:])
+    assert (sp2d.data_ptr() % 16 == 0) == (offset != 3)
     before = (pallas_kernels.row_rank_ge.launches, pallas_kernels.masked_row_sum.launches)
     rank = pallas_kernels.row_rank_ge(sp2d, b, q)
     msum = pallas_kernels.masked_row_sum(v2d, b, rem)
@@ -269,6 +318,8 @@ def test_cuda_rank_kernels_match_plain(nq):
         before[0] + 1, before[1] + 1)
     assert torch.equal(rank, pallas_kernels.row_rank_ge_plain(sp2d, b, q))
     assert torch.equal(msum, pallas_kernels.masked_row_sum_plain(v2d, b, rem))
+    er, es = _numpy_rank(*case)
+    assert np.array_equal(rank.cpu().numpy(), er) and np.array_equal(msum.cpu().numpy(), es)
 
 
 STAR_SQL = [
