@@ -74,6 +74,29 @@ Phases, each printing one line or a few:
                    a profiled run's syncs; then a profile of the sharded
                    suite with the collectives and the rank stage annotated.
 
+  9. the remaining modules (printed as phases profile_ops, unsigned and
+                   csv): utils/profiling.py on phase 6's database (after
+                   phase 7) and on phase 8's (after it): the 22 with the
+                   profile on, each statement's (op, depth, rows_out) list
+                   equal to phase 6's CPU run (which ran with the profile
+                   on), every root's rows_out equal to its result's rows,
+                   host self time by query and by operator kind, the warm
+                   pass with the profile off/on/on/off, and a
+                   profiling.trace() of Q1 that must hold
+                   grouped_histogram. The unsigned types: a table of 2^24
+                   rows (UTINYINT..UBIGINT, numpy seed 0, ~1% NULLs) and a
+                   2^16-row join table, six queries (kernel 1's GROUP BY,
+                   the sorted GROUP BY of full-range UBIGINT, ORDER BY e
+                   both ways, wrapping arithmetic and / % folded to sums,
+                   the join, cast to DOUBLE), each against an exact numpy
+                   oracle, the port's CPU run and 4 shards on the card,
+                   beside the same GROUP BY on signed columns. The native
+                   CSV loader: TPC-H lineitem at SF 0.1 as CSV, read by the
+                   native loader and by read_csv_file (equal, both timed),
+                   Q1/Q6 from it equal to the numpy-loaded table; then
+                   `python -m sqlrs_tpu_torch.cli --device cuda` on it, its
+                   table text equal to pretty_table of Database.run's.
+
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
 non-zero. Without CUDA it exits non-zero before printing anything.
@@ -82,6 +105,7 @@ non-zero. Without CUDA it exits non-zero before printing anything.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -101,6 +125,7 @@ KERNEL_SOURCES = ("mxu_grouped", "mxu_agg", "pallas_kernels")
 BASELINE_SOURCES = ("baseline/mxu_grouped_v1", "baseline/mxu_agg_v1",
                     "baseline/pallas_kernels_v1")
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 Q1 = """
 select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
@@ -1399,9 +1424,14 @@ def phase_tpch22(dev, card: str) -> dict:
     try:
         cpu_db = sqlrs_tpu_torch.Database(device="cpu")
         tpch_dbgen.load_into(cpu_db, tables)
+        # with the profile on: phase 9 holds the card's operator lists to these
+        cpu_db.profile_enabled = True
+        cpu_ops = {}
         for qn in range(1, 23):
             cpu_db.last_fused_routes = []
-            tpch_compare(results[qn]["rows"], tpch_run(cpu_db, qn)[0], f"Q{qn} (cuda vs cpu)")
+            cpu_rows, _ms, profs, _n = tpch_run_profiled(cpu_db, qn)
+            cpu_ops[qn] = op_lists(profs)
+            tpch_compare(results[qn]["rows"], cpu_rows, f"Q{qn} (cuda vs cpu)")
             if cpu_db.last_fused_routes != results[qn]["routes"]:
                 raise AssertionError(f"Q{qn}: routes {results[qn]['routes']} on cuda, "
                                      f"{cpu_db.last_fused_routes} on the cpu")
@@ -1428,7 +1458,7 @@ def phase_tpch22(dev, card: str) -> dict:
         flush=True,
     )
     slowest = max(results, key=lambda q: float(np.median(results[q]["ms"][1:])))
-    return launches, db, slowest, tables, results
+    return launches, db, slowest, tables, results, cpu_ops
 
 
 # ---- phase 8: the sharded engine, 4 shards on one card --------------------
@@ -1590,6 +1620,523 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
                   "on one card, one after another",
                   lambda: [db.run(stmt) for qn in range(1, 23) for stmt in tpch_statements(qn)],
                   runs=1, functions=DIST_FUNCTIONS, warmups=0, timed=1)
+    return launches, db
+
+
+# ---- phase 9: the remaining modules on the card ---------------------------
+
+UNSIGNED_ROWS = 1 << 24
+UNSIGNED_JOIN_ROWS = 1 << 16
+UNSIGNED_SEED = 0
+UNSIGNED_SQL = {
+    # kernel 1's path: sums of unsigned columns over 64 keys
+    "grouped_kernel1": "select k, count(*), sum(a), sum(b), sum(c), sum(d), avg(c) "
+                       "from u group by k order by k",
+    # e spans [0, 2^64): kernel 1's value guard turns it down, the sorted
+    # GROUP BY takes it
+    "grouped_sorted": "select k, sum(e), min(e), max(e) from u group by k order by k",
+    "order_asc": "select e, k from u where e is not null order by e limit 10",
+    "order_desc": "select e, k from u where e is not null order by e desc limit 10",
+    # wrapping + - * and unsigned / % at each width, folded to sums
+    "arith_checksum": "select sum(a * a + a), sum(b * b - b), sum(c * c + c), "
+                      "sum(e * e + e), sum(-c), sum(e - d), "
+                      "sum(a / cast(7 as tinyint unsigned)), "
+                      "sum(b % cast(1000 as smallint unsigned)), "
+                      "sum(c / cast(12345 as int unsigned)), "
+                      "sum(d % cast(65537 as bigint unsigned)), "
+                      "sum(e / cast(1000003 as bigint unsigned)), "
+                      "sum(e % cast(4294967311 as bigint unsigned)) from u",
+    "join": "select count(*), sum(w), sum(k) from u join v on u.e = v.e2",
+    "cast_double": "select sum(cast(e as double)), min(cast(e as double)), "
+                   "max(cast(e as double)), sum(cast(c as double)) from u",
+}
+# the same GROUP BY on signed columns holding the same values, for the
+# unsigned path's cost
+SIGNED_SQL = ("select k, count(*), sum(a), sum(b), sum(c), sum(d), avg(c) "
+              "from s group by k order by k")
+CSV_SF = 0.1  # lineitem for the CSV loader: SF1 cut to 0.1 (the Python reader takes minutes at 6M rows)
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def gen_unsigned(n: int, seed: int = UNSIGNED_SEED) -> dict:
+    """Table u: k INTEGER in [0, 64); a UTINYINT, b USMALLINT, c UINTEGER
+    over their full ranges; d UBIGINT in [0, 2^36); e UBIGINT over [0,
+    2^64); about 1% NULLs in every column. Table v: 2^16 rows of u's
+    non-NULL e (distinct rows, numbered by w)."""
+    rng = np.random.default_rng(seed)
+    cols = {
+        "k": ("INTEGER", rng.integers(0, 64, n).astype(np.int32)),
+        "a": ("UTINYINT", rng.integers(0, 2**8, n, dtype=np.uint64).astype(np.uint8)),
+        "b": ("USMALLINT", rng.integers(0, 2**16, n, dtype=np.uint64).astype(np.uint16)),
+        "c": ("UINTEGER", rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
+        "d": ("UBIGINT", rng.integers(0, 2**36, n, dtype=np.uint64)),
+        "e": ("UBIGINT", rng.integers(0, 2**64 - 1, n, dtype=np.uint64, endpoint=True)),
+    }
+    valid = {c: rng.random(n) >= 0.01 for c in cols}
+    ev = np.flatnonzero(valid["e"])
+    pick = rng.choice(ev, min(UNSIGNED_JOIN_ROWS, len(ev)), replace=False)
+    v = {"e2": ("UBIGINT", cols["e"][1][pick]),
+         "w": ("BIGINT", np.arange(len(pick), dtype=np.int64))}
+    return {"u": (cols, valid), "v": (v, {})}
+
+
+def load_unsigned(db, data: dict, signed: bool = False) -> None:
+    """Tables u and v into db (import_tables: numpy uint* in); with
+    `signed`, table s instead: u's k, a, b, c, d as SMALLINT, INTEGER,
+    BIGINT, BIGINT (the same values and NULLs)."""
+    from sqlrs_tpu_torch.storage.memory import import_tables
+
+    if signed:
+        cols, valid = data["u"]
+        as_signed = {"k": "INTEGER", "a": "SMALLINT", "b": "INTEGER", "c": "BIGINT",
+                     "d": "BIGINT"}
+        import_tables(db, {"s": [
+            (c, t, cols[c][1].astype(np.int64), valid[c]) for c, t in as_signed.items()
+        ]})
+        return
+    import_tables(db, {
+        name: [(c, t, a, valid.get(c)) for c, (t, a) in cols.items()]
+        for name, (cols, valid) in data.items()
+    })
+
+
+def _usum(x) -> int:
+    """The sum of uint64 values modulo 2^64, as the engine's UBIGINT sum."""
+    return int(np.sum(x.astype(np.uint64), dtype=np.uint64))
+
+
+def oracle_unsigned(data: dict) -> dict:
+    """Each UNSIGNED_SQL query in numpy, with exact uint semantics: uint
+    arithmetic wraps at its width, sums modulo 2^64; NULL rows left out."""
+    cols, valid = data["u"]
+    k, kv = cols["k"][1], valid["k"]
+    a, b, c, d, e = (cols[x][1] for x in "abcde")
+    va, vb, vc, vd, ve = (valid[x] for x in "abcde")
+    out = {}
+    with np.errstate(over="ignore"):
+        # rows grouped by k (NULL first, as ORDER BY k puts it), each
+        # group a slice of the rows sorted by k
+        kk = np.where(kv, k.astype(np.int64), -1)
+        perm = np.argsort(kk, kind="stable")
+        keys, starts = np.unique(kk[perm], return_index=True)
+        ends = np.append(starts[1:], len(perm))
+        g1, g2 = [], []
+        for key, lo, hi in zip(keys.tolist(), starts.tolist(), ends.tolist()):
+            rows = perm[lo:hi]
+
+            def vals(x, vx):
+                return x[rows][vx[rows]]
+
+            cs_ = vals(c, vc)
+            g1.append((None if key < 0 else key, len(rows), _usum(vals(a, va)),
+                       _usum(vals(b, vb)), _usum(cs_), _usum(vals(d, vd)),
+                       float(int(cs_.astype(np.uint64).sum())) / len(cs_)))
+            es = vals(e, ve)
+            g2.append((None if key < 0 else key, _usum(es), int(es.min()), int(es.max())))
+        out["grouped_kernel1"], out["grouped_sorted"] = g1, g2
+        idx = np.flatnonzero(ve)
+
+        def krow(i):
+            return int(k[i]) if kv[i] else None
+
+        def top10(key):
+            # the rows whose key is among the 10 least (ties included), in
+            # the stable order: by key, then by row
+            cut = np.partition(key, 9)[9]
+            cand = idx[key <= cut]
+            return cand[np.lexsort((cand, key[key <= cut]))][:10]
+
+        ee = e[idx]
+        out["order_asc"] = [(int(e[i]), krow(i)) for i in top10(ee)]
+        out["order_desc"] = [(int(e[i]), krow(i)) for i in top10(~ee)]
+        ed = ve & vd
+        out["arith_checksum"] = [(
+            _usum((a * a + a)[va]), _usum((b * b - b)[vb]), _usum((c * c + c)[vc]),
+            _usum((e * e + e)[ve]), _usum((-c)[vc]), _usum((e - d)[ed]),
+            _usum((a // np.uint8(7))[va]), _usum((b % np.uint16(1000))[vb]),
+            _usum((c // np.uint32(12345))[vc]), _usum((d % np.uint64(65537))[vd]),
+            _usum((e // np.uint64(1000003))[ve]), _usum((e % np.uint64(4294967311))[ve]),
+        )]
+        vcols, _ = data["v"]
+        e2, w = vcols["e2"][1], vcols["w"][1]
+        # each u row with e among v's e2: the v rows it matches (e2 distinct
+        # rows of u, so one e2 value may repeat only if u's e does)
+        srt = np.argsort(e2, kind="stable")
+        e2s, ws = e2[srt], w[srt]
+        lo = np.searchsorted(e2s, e[ve], "left")
+        hi = np.searchsorted(e2s, e[ve], "right")
+        m = hi > lo
+        wpre = np.concatenate([[0], np.cumsum(ws)])
+        n_m = (hi - lo)[m]
+        ku = np.where(kv[ve], k[ve], 0).astype(np.int64)[m]
+        out["join"] = [(int(n_m.sum()), int((wpre[hi[m]] - wpre[lo[m]]).sum()),
+                        int((ku * n_m).sum()))]
+        ef = e[ve].astype(np.float64)
+        out["cast_double"] = [(float(ef.sum()), float(ef.min()), float(ef.max()),
+                               float(c[vc].astype(np.float64).sum()))]
+    return out
+
+
+def _rows(batches) -> list:
+    return [tuple(r) for b in batches for r in b.to_pylist()]
+
+
+def _timed_rows(db, sql: str, dev):
+    _sync(dev)
+    t0 = time.perf_counter()
+    batches = db.run(sql)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return _rows(batches), ms
+
+
+def phase_unsigned(dev, card: str, n: int = UNSIGNED_ROWS, shards: int = 4) -> int:
+    """The unsigned deployment: tables u (n rows) and v, each UNSIGNED_SQL
+    query one cold and three warm runs on the card, its rows against the
+    numpy oracle (integers exactly, DOUBLE to rel 1e-9), against the port's
+    CPU run of the same SQL (SQLRS_TPU_MXU=interpret: the same routes with
+    the kernels' plain versions) and against `shards` shards on the card.
+    The kernel-1 query must log hashagg_mxu and launch grouped_histogram.
+    Returns grouped_histogram's launches on the card's single-device runs."""
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+    from sqlrs_tpu_torch.parallel.mesh import make_mesh
+
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    data = gen_unsigned(n)
+    exp = oracle_unsigned(data)
+    gen_s = time.perf_counter() - t0
+    db = sqlrs_tpu_torch.Database(device=dev)
+    load_unsigned(db, data)
+    load_unsigned(db, data, signed=True)
+    for name in ("u", "v", "s"):
+        db.catalog.table(name).storage.scan(dev)
+    _sync(dev)
+    print(f"phase unsigned: table u {n} rows (k INTEGER, a UTINYINT, b USMALLINT, "
+          f"c UINTEGER, d UBIGINT < 2^36, e UBIGINT over [0, 2^64), ~1% NULLs each), "
+          f"v {len(data['v'][0]['w'][1])} rows, numpy seed {UNSIGNED_SEED}; made with "
+          f"their numpy oracle in {gen_s:.1f} s", flush=True)
+
+    grouped_histogram.launches = 0  # this path's own launches from here
+    results = {}
+    for name, sql in UNSIGNED_SQL.items():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        h0 = grouped_histogram.launches
+        times, rows = [], None
+        for _ in range(4):  # one cold run, then three warm runs
+            db.last_fused_routes = []
+            got, ms = _timed_rows(db, sql, dev)
+            times.append(ms)
+            if rows is not None and got != rows:
+                raise AssertionError(f"unsigned {name}: a warm run gave other rows")
+            rows = got
+        tpch_compare(rows, exp[name], f"unsigned {name} (numpy oracle)")
+        results[name] = {
+            "rows": rows, "ms": times, "routes": list(db.last_fused_routes),
+            "hist": grouped_histogram.launches - h0,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0,
+        }
+    launches = grouped_histogram.launches
+    k1 = results["grouped_kernel1"]
+    if "hashagg_mxu" not in k1["routes"] or (on_card and k1["hist"] < 4):
+        raise AssertionError(f"unsigned grouped_kernel1: routes {k1['routes']}, "
+                             f"{k1['hist']} grouped_histogram launches in 4 runs")
+    if results["grouped_sorted"]["routes"]:
+        raise AssertionError("unsigned grouped_sorted took " +
+                             str(results["grouped_sorted"]["routes"]))
+    signed = []
+    for _ in range(4):
+        signed.append(_timed_rows(db, SIGNED_SQL, dev)[1])
+    if _timed_rows(db, SIGNED_SQL, dev)[0] != k1["rows"]:
+        raise AssertionError("the signed copy's GROUP BY gave other rows")
+
+    # the port's CPU run of the same SQL
+    t0 = time.perf_counter()
+    saved = os.environ.get("SQLRS_TPU_MXU")
+    os.environ["SQLRS_TPU_MXU"] = "interpret"
+    try:
+        cpu_db = sqlrs_tpu_torch.Database(device="cpu")
+        load_unsigned(cpu_db, data)
+        for name, sql in UNSIGNED_SQL.items():
+            cpu_db.last_fused_routes = []
+            tpch_compare(results[name]["rows"], _rows(cpu_db.run(sql)),
+                         f"unsigned {name} (card vs cpu)")
+            if cpu_db.last_fused_routes != results[name]["routes"]:
+                raise AssertionError(f"unsigned {name}: routes {results[name]['routes']} "
+                                     f"on the card, {cpu_db.last_fused_routes} on the cpu")
+    finally:
+        if saved is None:
+            os.environ.pop("SQLRS_TPU_MXU")
+        else:
+            os.environ["SQLRS_TPU_MXU"] = saved
+    del cpu_db
+    cpu_s = time.perf_counter() - t0
+
+    # the sharded engine over `shards` shards on the same device
+    t0 = time.perf_counter()
+    mesh = make_mesh(shards, devices=[dev] * shards)
+    dist_db = sqlrs_tpu_torch.Database(mesh=mesh)
+    load_unsigned(dist_db, data)
+    dist_ms = {}
+    for name, sql in UNSIGNED_SQL.items():
+        ms = []
+        for _ in range(2):
+            got, t = _timed_rows(dist_db, sql, dev)
+            tpch_compare(got, results[name]["rows"], f"unsigned {name} (sharded vs one device)")
+            ms.append(t)
+        dist_ms[name] = ms
+    del dist_db
+    dist_s = time.perf_counter() - t0
+
+    for name, r in results.items():
+        ms = r["ms"]
+        print(f"  {name}: cold {ms[0]:.1f} ms, warm {', '.join(f'{t:.1f}' for t in ms[1:])} "
+              f"ms (median {float(np.median(ms[1:])):.1f}); {len(r['rows'])} rows; routes "
+              f"{r['routes']}; grouped_histogram {r['hist']}; peak device memory "
+              f"{r['peak_gb']:.2f} GB; {shards} shards warm {dist_ms[name][1]:.1f} ms "
+              f"(cold {dist_ms[name][0]:.1f})", flush=True)
+    print(f"  the same GROUP BY on signed columns (SMALLINT, INTEGER, BIGINT, BIGINT): "
+          f"warm {', '.join(f'{t:.1f}' for t in signed[1:])} ms (median "
+          f"{float(np.median(signed[1:])):.1f}) against unsigned "
+          f"{float(np.median(k1['ms'][1:])):.1f} ms", flush=True)
+    print(f"  all {len(results)} match the numpy oracle (integers exactly, doubles rel "
+          f"1e-9), the cpu run ({cpu_s:.1f} s with its load) with equal routes, and "
+          f"{shards} shards on the card ({dist_s:.1f} s with the load); grouped_histogram "
+          f"{launches} launches [{card}]", flush=True)
+    return launches
+
+
+def tpch_run_profiled(db, qn: int):
+    """(rows as tpch_run takes them, ms, [each statement's QueryProfile],
+    [each statement's result row count]) with db's profile on."""
+    _sync(db.device)
+    t0 = time.perf_counter()
+    outs, profs = [], []
+    for stmt in tpch_statements(qn):
+        outs.append(db.run(stmt))
+        profs.append(db.last_profile)
+    _sync(db.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for batches in outs:
+        out = [tuple(r) for b in batches for r in b.to_pylist()]
+        if out or (batches and batches[0].columns):
+            rows = out
+    return rows, ms, profs, [sum(b.num_rows for b in bs) for bs in outs]
+
+
+def op_lists(profs) -> list:
+    return [[(s.op, s.depth, s.rows_out) for s in p.ops] for p in profs]
+
+
+def _op_kind(op: str) -> str:
+    return op.split("(")[0].strip()
+
+
+def _suite_passes(db, profile: bool) -> float:
+    """One warm pass over the 22 with the profile on or off: its ms."""
+    db.profile_enabled = profile
+    _sync(db.device)
+    t0 = time.perf_counter()
+    for qn in range(1, 23):
+        for stmt in tpch_statements(qn):
+            db.run(stmt)
+    _sync(db.device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_profiled22(card: str, label: str, db, results: dict, cpu_ops=None,
+                     trace_dir=None, rounds: int = 1) -> int:
+    """The 22 with db.profile_enabled on: per query the operator count,
+    the sum of the operators' host self time against the root's wall and
+    db.run's wall, the three operators with the most host self time; for
+    the suite host self ms by operator kind; the root's rows_out against the
+    result's row count; with cpu_ops, each statement's (op, depth, rows_out)
+    list equal to the CPU database's. Then the warm pass with the profile
+    off, on, on, off, `rounds` times (its overhead: the mean of the on
+    passes less that of the off passes), and with trace_dir a torch.profiler
+    trace of Q1 that must hold grouped_histogram. Returns
+    grouped_histogram's launches in this phase."""
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+    from sqlrs_tpu_torch.utils import profiling
+
+    grouped_histogram.launches = 0
+    db.profile_enabled = True
+    by_kind: dict = {}
+    print(f"phase profile_ops: {label}, the 22 with Database.profile_enabled on "
+          f"(host-clock self time of an operator: launching its work plus its syncs)",
+          flush=True)
+    total_self = total_wall = 0.0
+    for qn in range(1, 23):
+        rows, ms, profs, counts = tpch_run_profiled(db, qn)
+        tpch_compare(rows, results[qn]["rows"], f"Q{qn} (profiled run)")
+        ops = op_lists(profs)
+        if cpu_ops is not None and ops != cpu_ops[qn]:
+            raise AssertionError(f"Q{qn}: the operator lists differ from the cpu run's")
+        for p, n_rows in zip(profs, counts):
+            if p.ops and p.ops[-1].rows_out != n_rows:
+                raise AssertionError(f"Q{qn}: root rows_out {p.ops[-1].rows_out} != "
+                                     f"{n_rows} result rows")
+        all_ops = [s for p in profs for s in p.ops]
+        self_s = sum(s.self_s for s in all_ops)
+        root_s = sum(p.ops[-1].wall_s for p in profs if p.ops)
+        for s in all_ops:
+            by_kind[_op_kind(s.op)] = by_kind.get(_op_kind(s.op), 0.0) + s.self_s
+        top = sorted(all_ops, key=lambda s: -s.self_s)[:3]
+        total_self += self_s
+        total_wall += ms / 1e3
+        print(f"  Q{qn}: {len(all_ops)} operators; host self {self_s * 1e3:.1f} ms of the "
+              f"roots' {root_s * 1e3:.1f} ms and db.run's {ms:.1f} ms; most: "
+              + "; ".join(f"{s.op[:40]} {s.self_s * 1e3:.1f} ms" for s in top), flush=True)
+    kinds = sorted(by_kind.items(), key=lambda kv: -kv[1])
+    print(f"  suite: host self {total_self * 1e3:.1f} ms of {total_wall * 1e3:.1f} ms; by "
+          "operator kind: " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in kinds), flush=True)
+    if cpu_ops is not None:
+        print("  every statement's (op, depth, rows_out) list equals the cpu run's; "
+              "every root's rows_out equals its result's row count", flush=True)
+    order = (False, True, True, False) * rounds
+    passes = [_suite_passes(db, p) for p in order]
+    off = float(np.mean([t for t, p in zip(passes, order) if not p]))
+    on = float(np.mean([t for t, p in zip(passes, order) if p]))
+    print(f"  warm passes of the 22, profile {' / '.join('on' if p else 'off' for p in order)}: "
+          f"{', '.join(f'{t:.1f}' for t in passes)} ms; overhead {on - off:+.1f} ms "
+          f"({(on / off - 1) * 100:+.1f}%) [{card}]", flush=True)
+    db.profile_enabled = False
+    if trace_dir is not None:
+        import json as _json
+
+        with profiling.trace(trace_dir):
+            for stmt in tpch_statements(1):
+                db.run(stmt)
+            _sync(db.device)
+        path = os.path.join(trace_dir, "trace.json")
+        with open(path) as f:
+            names = {str(e.get("name", "")) for e in _json.load(f)["traceEvents"]}
+        hits = sorted(n for n in names if "grouped_histogram" in n) or ["none"]
+        if db.device.type == "cuda" and hits == ["none"]:
+            raise AssertionError(f"the trace of Q1 ({path}) holds no grouped_histogram kernel")
+        print(f"  trace of Q1 through utils/profiling.trace: {os.path.relpath(path, REPO)}, "
+              f"{len(names)} distinct event names, kernel {hits[0][:60]}", flush=True)
+    print(f"  grouped_histogram launches in this phase: {grouped_histogram.launches}",
+          flush=True)
+    return grouped_histogram.launches
+
+
+def write_table_csv(cols: dict, path: str) -> None:
+    """A generated table as CSV: dates ISO, doubles by repr (round trip),
+    the rest as text; quoting by the csv module."""
+    import csv
+
+    from sqlrs_tpu_torch.benchmarks.tpch_dbgen import type_name
+
+    texts = []
+    for c, a in cols.items():
+        t = type_name(c, a)
+        if t == "DATE":
+            texts.append(np.datetime_as_string(a.astype("datetime64[D]")).tolist())
+        elif t == "DOUBLE":
+            texts.append([repr(x) for x in a.tolist()])
+        else:
+            texts.append(a.astype(str).tolist())
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(list(cols))
+        w.writerows(zip(*texts))
+
+
+def phase_csv_cli(dev, card: str, tmpdir: str) -> int:
+    """TPC-H lineitem at SF CSV_SF, seed SEED, written as CSV: the native
+    loader (built from native/csv_loader.cpp at first use) must be
+    available and give read_csv_file's table column for column; both load
+    times; Q1 and Q6 on the card from the CSV-loaded table equal to the
+    same data loaded from numpy; then `python -m sqlrs_tpu_torch.cli
+    --device <dev> --csv-dir <tmpdir> -c <Q6>` in a subprocess must print
+    pretty_table's text of Database.run of the same SQL. Returns
+    grouped_histogram's launches in the Q1 runs."""
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import tpch_dbgen
+    from sqlrs_tpu_torch.ops.mxu_grouped import grouped_histogram
+    from sqlrs_tpu_torch.storage import native_loader
+    from sqlrs_tpu_torch.storage.csv import read_csv_file
+    from sqlrs_tpu_torch.utils.render import batch_to_rows, pretty_table
+
+    t0 = time.perf_counter()
+    li = tpch_dbgen.gen_tables(CSV_SF, seed=SEED)["lineitem"]
+    path = os.path.join(tmpdir, "lineitem.csv")
+    write_table_csv(li, path)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not native_loader.native_available():
+        raise AssertionError("the native CSV loader did not build or load")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a = native_loader.read_csv_native(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = read_csv_file(path)
+    python_s = time.perf_counter() - t0
+    if a.names != b.names or a.types != b.types or a.num_rows != b.num_rows:
+        raise AssertionError(f"native {a.names} {a.types} {a.num_rows} != python "
+                             f"{b.names} {b.types} {b.num_rows}")
+    for i, name in enumerate(a.names):
+        da, va = a.host_column(i)
+        db_, vb = b.host_column(i)
+        if da.dtype != db_.dtype or not np.array_equal(va, vb) or not np.array_equal(
+                da[va], db_[vb]):
+            raise AssertionError(f"column {name}: the native loader differs from read_csv_file")
+    print(f"phase csv: TPC-H lineitem at SF {CSV_SF} (cut from SF1: the Python reader "
+          f"takes minutes at 6M rows), seed {SEED}: {a.num_rows} rows x {len(a.names)} "
+          f"columns, {os.path.getsize(path) / 1e6:.1f} MB of CSV (made in {gen_s:.1f} s); "
+          f"native loader built/loaded in {build_s:.2f} s "
+          f"({os.path.basename(native_loader.library_path())}); load {native_s:.2f} s native "
+          f"against {python_s:.2f} s read_csv_file, every column equal", flush=True)
+
+    csv_db = sqlrs_tpu_torch.Database(device=dev)
+    t0 = time.perf_counter()
+    csv_db.create_csv_table("lineitem", path)  # load_csv: the native path
+    load_s = time.perf_counter() - t0
+    np_db = sqlrs_tpu_torch.Database(device=dev)
+    tpch_dbgen.load_into(np_db, {"lineitem": li})
+    grouped_histogram.launches = 0
+    for qn in (1, 6):
+        sql = tpch_statements(qn)[0]
+        got, ms = _timed_rows(csv_db, sql, dev)
+        exp = _rows(np_db.run(sql))
+        if got != exp:
+            raise AssertionError(f"Q{qn}: the CSV-loaded table's rows differ from numpy's")
+        print(f"  Q{qn} on {dev} from the CSV-loaded table ({load_s:.2f} s through "
+              f"Database.create_csv_table): {len(got)} rows equal to the numpy-loaded "
+              f"table's; cold {ms:.1f} ms", flush=True)
+    launches = grouped_histogram.launches
+    if torch.device(dev).type == "cuda" and launches < 1:
+        raise AssertionError("Q1 from the CSV table did not launch grouped_histogram")
+
+    q6 = tpch_statements(6)[0]
+    batches = csv_db.run(q6)
+    want = pretty_table(batches[0].schema.names, batch_to_rows(batches[0]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sqlrs_tpu_torch.cli", "--device", str(torch.device(dev).type),
+         "--csv-dir", tmpdir, "-c", q6],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    table = "\n".join(ln for ln in proc.stdout.splitlines() if ln[:1] in ("+", "|"))
+    if table != want:
+        raise AssertionError(f"the CLI printed\n{proc.stdout}\nexpected\n{want}")
+    timing = [ln for ln in proc.stdout.splitlines() if ln.startswith("time consumed")]
+    print(f"  python -m sqlrs_tpu_torch.cli --device {torch.device(dev).type} --csv-dir "
+          f"<tmp> -c <Q6>: exit 0 in {cli_s:.1f} s (process, import, CSV load and query); "
+          f"its table equals pretty_table of Database.run's; {timing[0] if timing else ''}; "
+          f"grouped_histogram launches in Q1 from both tables: {launches} [{card}]", flush=True)
     return launches
 
 
@@ -1636,13 +2183,21 @@ def main() -> int:
     phase_profile(card, "dense ORDER BY rollup",
                   lambda: star_db.run(STAR_SQL["dense_order"][0]))
     del star_db, tpch_db
-    launches22, db22, slowest, tables22, results22 = phase_tpch22(dev, card)
+    launches22, db22, slowest, tables22, results22, cpu_ops22 = phase_tpch22(dev, card)
     phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
                   lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
     phase_profile(card, f"all 22 TPC-H queries at SF {TPCH22_SF}, one after another",
                   lambda: [db22.run(stmt) for qn in range(1, 23)
                            for stmt in tpch_statements(qn)], runs=1,
                   functions=PROFILED_FUNCTIONS)
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
+    os.makedirs(os.path.join(tmp.name, "csv"))
+    hist_launches += phase_profiled22(
+        card, f"TPC-H SF {TPCH22_SF} on one device", db22, results22, cpu_ops22,
+        trace_dir=os.path.join(tmp.name, "trace"), rounds=3)
     del db22
     torch.cuda.empty_cache()
     from sqlrs_tpu_torch.parallel.mesh import make_mesh
@@ -1650,7 +2205,15 @@ def main() -> int:
     mesh = make_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS)
     phase_dist_star(dev, card, star, mesh)
     del star
-    launches_dist = phase_dist_tpch(dev, card, mesh, tables22, results22)
+    launches_dist, dist_db = phase_dist_tpch(dev, card, mesh, tables22, results22)
+    hist_launches += phase_profiled22(
+        card, f"TPC-H SF {TPCH22_SF} over {mesh.size} shards on one card (dist: labels)",
+        dist_db, results22)
+    del dist_db, tables22
+    torch.cuda.empty_cache()
+    hist_launches += phase_unsigned(dev, card)
+    hist_launches += phase_csv_cli(dev, card, os.path.join(tmp.name, "csv"))
+    tmp.cleanup()
     for extra in (launches22, launches_dist):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):

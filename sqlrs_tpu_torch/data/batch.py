@@ -23,35 +23,95 @@ import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, NULL_CODE
-from sqlrs_tpu_torch.errors import ExecutorError, TypeError_
+from sqlrs_tpu_torch.errors import TypeError_
 from sqlrs_tpu_torch.types import Interval, LogicalType, ScalarValue, numpy_dtype_for
 
-_UNSIGNED = {
-    LogicalType.UTINYINT,
-    LogicalType.USMALLINT,
-    LogicalType.UINTEGER,
-    LogicalType.UBIGINT,
+_INT64_MIN = -(2**63)
+_INT64_MAX = 2**63 - 1
+
+# The unsigned types' tensor form. torch has no arithmetic, comparison or
+# where on uint16/uint32/uint64 tensors (uint8 has them all), so UTINYINT
+# is uint8, USMALLINT and UINTEGER live in the next wider signed dtype
+# (always holding a value in [0, 2^16) or [0, 2^32)), and UBIGINT is the
+# int64 bit pattern of the uint64 value. The host form stays numpy's
+# uint8..uint64 (types/types.numpy_dtype_for); storage_np and logical_np
+# convert between the two exactly.
+_CONTAINERS = {
+    LogicalType.USMALLINT: np.dtype(np.int32),
+    LogicalType.UINTEGER: np.dtype(np.int64),
+    LogicalType.UBIGINT: np.dtype(np.int64),
 }
+_WRAP_MASKS = {LogicalType.USMALLINT: 0xFFFF, LogicalType.UINTEGER: 0xFFFFFFFF}
 
 
 def torch_dtype_for(t: LogicalType) -> torch.dtype:
     """Tensor dtype of a logical type: the numpy representation of
-    types/types.py, mapped one to one. The unsigned types have no tensor
-    representation yet."""
-    if t in _UNSIGNED:
-        raise ExecutorError(f"type {t} not yet ported to sqlrs_tpu_torch")
-    return _TORCH_DTYPES[numpy_dtype_for(t)]
+    types/types.py mapped one to one, except for the unsigned containers
+    above."""
+    return _TORCH_DTYPES[_CONTAINERS.get(t) or numpy_dtype_for(t)]
 
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
 }
+
+
+def storage_np(t: LogicalType, a: np.ndarray) -> np.ndarray:
+    """Host values of type t (numpy's dtype for t) in the tensor form's
+    numpy dtype; exact both ways with logical_np."""
+    a = np.asarray(a).astype(numpy_dtype_for(t), copy=False)
+    if t == LogicalType.UBIGINT:
+        return np.ascontiguousarray(a).view(np.int64)
+    c = _CONTAINERS.get(t)
+    return a if c is None else a.astype(c)
+
+
+def logical_np(t: LogicalType, a: np.ndarray) -> np.ndarray:
+    """Inverse of storage_np: tensor-form host values back to numpy's
+    dtype for t."""
+    if t == LogicalType.UBIGINT:
+        return np.ascontiguousarray(a).view(np.uint64)
+    if t in _CONTAINERS:
+        return a.astype(numpy_dtype_for(t))
+    return a
+
+
+def wrap_unsigned(t: LogicalType, x):
+    """Reduce a USMALLINT/UINTEGER container tensor modulo 2^16 / 2^32, as
+    numpy's uint16/uint32 arithmetic wraps; the identity for other types
+    (uint8 and the UBIGINT bit pattern wrap by themselves)."""
+    m = _WRAP_MASKS.get(t)
+    return x if m is None else x & m
+
+
+def ubigint_key(x):
+    """int64 whose signed order is the unsigned order of the UBIGINT bit
+    patterns `x` (the value less 2^63, wrapped)."""
+    return x ^ _INT64_MIN
+
+
+def ubigint_to_float(x, dtype=torch.float64):
+    """The UBIGINT bit patterns `x` as floats, each rounded once to nearest
+    even as numpy's uint64 -> float conversion rounds: a value >= 2^63 is
+    halved with its low bit kept sticky, converted, and doubled."""
+    half = ((x >> 1) & _INT64_MAX) | (x & 1)
+    return torch.where(x < 0, half.to(dtype) * 2, x.to(dtype))
+
+
+def float_to_ubigint(f):
+    """UBIGINT bit patterns of the floats `f` (in [0, 2^64) where the
+    result is used), truncated as numpy's float -> uint64 conversion."""
+    f = f.to(torch.float64)
+    hi = f >= 2.0**63
+    lo_part = torch.where(hi, f - 2.0**63, f).to(torch.int64)
+    return torch.where(hi, lo_part ^ _INT64_MIN, lo_part)
 
 
 @dataclass(frozen=True)
@@ -100,13 +160,11 @@ class Column:
         *,
         device,
     ) -> "Column":
-        dt = numpy_dtype_for(t)
-        torch_dtype_for(t)
         if valid is None:
             valid = np.ones(len(data), dtype=np.bool_)
         return Column(
             t,
-            host_to_device(data.astype(dt, copy=False), device),
+            host_to_device(storage_np(t, data), device),
             host_to_device(np.asarray(valid, dtype=np.bool_), device),
         )
 
@@ -127,17 +185,20 @@ class Column:
             data = torch.full((n,), fill, dtype=dtype, device=device)
             valid = torch.zeros(n, dtype=torch.bool, device=device)
         else:
-            # the value goes through numpy's dtype first, so that it wraps
-            # or rounds exactly as the host representation does
-            x = np.array(_encode_value(t, v.cast_to(t).value), dtype=numpy_dtype_for(t))
-            data = torch.full((n,), x.item(), dtype=dtype, device=device)
+            # the value goes through numpy's dtype first (np.full's unsafe
+            # cast), so that it wraps or rounds exactly as the host
+            # representation does
+            x = np.full(1, _encode_value(t, v.cast_to(t).value), dtype=numpy_dtype_for(t))
+            data = torch.full((n,), storage_np(t, x)[0].item(), dtype=dtype, device=device)
             valid = torch.ones(n, dtype=torch.bool, device=device)
         return Column(t, data, valid)
 
     # ---- host access -----------------------------------------------------
 
     def data_np(self) -> np.ndarray:
-        return self.data.cpu().numpy()
+        """Host copy of the data in numpy's dtype for the type (uint8..
+        uint64 for the unsigned types)."""
+        return logical_np(self.type, self.data.cpu().numpy())
 
     def valid_np(self) -> np.ndarray:
         return self.valid.cpu().numpy()
@@ -145,7 +206,8 @@ class Column:
     def scalar_at(self, i: int) -> ScalarValue:
         if not bool(self.valid[i]):
             return ScalarValue(self.type, None)
-        return ScalarValue(self.type, _decode_value(self.type, self.data[i].item()))
+        x = logical_np(self.type, self.data[i : i + 1].cpu().numpy())[0].item()
+        return ScalarValue(self.type, _decode_value(self.type, x))
 
     def to_pylist(self) -> list[Any]:
         return _to_pylist(self.type, self.data_np(), self.valid_np())

@@ -32,7 +32,7 @@ from sqlrs_tpu_torch.binder.expression import (
     visit_expr,
 )
 from sqlrs_tpu_torch.data import Column, DeviceBatch, Schema, SchemaField
-from sqlrs_tpu_torch.data.batch import torch_dtype_for
+from sqlrs_tpu_torch.data.batch import torch_dtype_for, ubigint_key
 from sqlrs_tpu_torch.data.strings import NULL_CODE
 from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.exec.expression_executor import (
@@ -65,9 +65,10 @@ def not_ported(what: str) -> ExecutorError:
 
 
 class Executor:
-    def __init__(self, db) -> None:
+    def __init__(self, db, profile=None) -> None:
         self.db = db
         self.device = db.device
+        self.profile = profile  # utils/profiling.QueryProfile | None
         # child batches that a bailed fused-route attempt already executed
         # (exec/fused_route.py), keyed by id(operator)
         self._route_cache: dict[int, DeviceBatch] = {}
@@ -84,7 +85,12 @@ class Executor:
         )
         if method is None:
             raise not_ported(f"operator {type(op).__name__}")
-        return method(op)
+        if self.profile is None:
+            return method(op)
+        with self.profile.measure(op.explain_line()[:60]) as stats:
+            out = method(op)
+            stats.rows_out = out.num_rows
+        return out
 
     # ---- scans -------------------------------------------------------------
 
@@ -333,7 +339,7 @@ class Executor:
             return Column(LogicalType.BIGINT, counts, ones)
         if name in ("sum", "avg"):
             acc_t = LogicalType.DOUBLE if name == "avg" else a.type
-            data = col.data.to(torch_dtype_for(acc_t))
+            data = ew.convert_numeric(col.data, col.type, acc_t)
             s = seg_sum(data, valid, gid, n_groups)
             if name == "avg":
                 data = s / torch.clamp(counts, min=1).to(torch.float64)
@@ -351,6 +357,13 @@ class Executor:
                     else torch.full((n_groups,), NULL_CODE, dtype=torch.int32, device=dev)
                 )
                 return Column(LogicalType.VARCHAR, codes, has_any)
+            if col.type == LogicalType.UBIGINT:  # min/max in unsigned order
+                key = ubigint_key(col.data)
+                if name == "min":
+                    data = seg_min(key, valid, gid, n_groups, _INT64_MAX)
+                else:
+                    data = seg_max(key, valid, gid, n_groups, -_INT64_MAX - 1)
+                return Column(col.type, ubigint_key(data), has_any)
             info = (
                 np.iinfo(numpy_dtype_for(col.type))
                 if col.type.is_integral() or col.type == LogicalType.DATE
@@ -845,7 +858,7 @@ def _reduce_one_ungrouped(a, col, n: int, alive, device) -> Column:
         return Column(LogicalType.BIGINT, cnt.reshape(1), ones)
     if name in ("sum", "avg"):
         acc_t = LogicalType.DOUBLE if name == "avg" else rt
-        data = col.data.to(torch_dtype_for(acc_t))
+        data = ew.convert_numeric(col.data, col.type, acc_t)
         s = torch.where(ok, data, torch.zeros_like(data)).sum(
             dtype=torch_dtype_for(acc_t)
         )
@@ -862,6 +875,12 @@ def _reduce_one_ungrouped(a, col, n: int, alive, device) -> Column:
                 return Column(LogicalType.VARCHAR, codes, has)
             i = torch.argmin(k) if name == "min" else torch.argmax(k)
             return Column(LogicalType.VARCHAR, col.data[i].reshape(1), has)
+        if col.type == LogicalType.UBIGINT:  # min/max in unsigned order
+            key = ubigint_key(col.data)
+            sent = _INT64_MAX if name == "min" else -_INT64_MAX - 1
+            v = torch.where(ok, key, torch.full_like(key, sent))
+            r = (v.min() if name == "min" else v.max()) if n else torch.tensor(sent)
+            return Column(rt, ubigint_key(r.reshape(1).to(device)), has)
         dt = col.data.dtype
         if col.type.is_float():
             sent = float("inf") if name == "min" else float("-inf")

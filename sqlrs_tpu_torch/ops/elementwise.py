@@ -21,7 +21,14 @@ import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data import Column
-from sqlrs_tpu_torch.data.batch import host_to_device, torch_dtype_for
+from sqlrs_tpu_torch.data.batch import (
+    float_to_ubigint,
+    host_to_device,
+    torch_dtype_for,
+    ubigint_key,
+    ubigint_to_float,
+    wrap_unsigned,
+)
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, NULL_CODE
 from sqlrs_tpu_torch.errors import ExecutorError, TypeError_
 from sqlrs_tpu_torch.types import Interval, LogicalType
@@ -61,9 +68,14 @@ def cast_column(col: Column, dst: LogicalType, safe: bool = False) -> Column:
                 if lo > slo:
                     checks.append(col.data < lo)
                 if hi < shi:
-                    checks.append(col.data > hi)
+                    checks.append(
+                        # a UBIGINT bit pattern below 0 is a value >= 2^63
+                        (col.data < 0) | (col.data > hi)
+                        if src == LogicalType.UBIGINT
+                        else col.data > hi
+                    )
                 if not checks:
-                    return Column(dst, col.data.to(torch_dtype_for(dst)), valid)
+                    return Column(dst, convert_numeric(col.data, src, dst), valid)
                 bad = checks[0]
                 for c in checks[1:]:
                     bad = torch.logical_or(bad, c)
@@ -72,7 +84,7 @@ def cast_column(col: Column, dst: LogicalType, safe: bool = False) -> Column:
                     valid = torch.logical_and(valid, torch.logical_not(bad))
                 elif bool(bad.any()):
                     raise TypeError_(f"cast overflow: {src} value out of {dst} range")
-        return Column(dst, col.data.to(torch_dtype_for(dst)), valid)
+        return Column(dst, convert_numeric(col.data, src, dst), valid)
     if src == LogicalType.BOOLEAN and dst.is_numeric():
         return Column(dst, col.data.to(torch_dtype_for(dst)), col.valid)
     # string-involved casts run on host through the dictionary (cold path)
@@ -92,6 +104,28 @@ def cast_column(col: Column, dst: LogicalType, safe: bool = False) -> Column:
     return Column.from_scalars(dst, out, device=dev)
 
 
+def convert_numeric(data, src: LogicalType, dst: LogicalType):
+    """Numeric data of type src in dst's tensor form, converted as numpy's
+    astype converts between their host dtypes (integers wrap, floats
+    truncate toward zero, UBIGINT to float rounds once)."""
+    if src == LogicalType.UBIGINT and dst.is_float():
+        return ubigint_to_float(data, torch_dtype_for(dst))
+    if dst == LogicalType.UBIGINT and src.is_float():
+        return float_to_ubigint(data)
+    return wrap_unsigned(dst, data.to(torch_dtype_for(dst)))
+
+
+def _udiv64(a, b):
+    """Unsigned 64-bit quotient of the UBIGINT bit patterns a / b (b != 0):
+    halve a to stay in the signed range, divide, double, and correct by
+    one; a divisor >= 2^63 gives 0 or 1."""
+    big = b < 0
+    bs = torch.where(big, torch.ones_like(b), b)
+    q = (((a >> 1) & (2**63 - 1)) // bs) << 1
+    q = q + (ubigint_key(a - q * bs) >= ubigint_key(bs)).to(torch.int64)
+    return torch.where(big, (ubigint_key(a) >= ubigint_key(b)).to(torch.int64), q)
+
+
 # ---- arithmetic --------------------------------------------------------------
 
 _ARITH = {"+", "-", "*", "/", "%"}
@@ -108,7 +142,13 @@ def arithmetic(op: str, t: LogicalType, left: Column, right: Column) -> Column:
     elif op == "*":
         data = l * r
     elif op == "/":
-        if t.is_integral():
+        if t.is_unsigned_numeric():
+            # unsigned division (the JAX package's abs/sign formula is the
+            # identity there); x/0 -> NULL
+            safe_r = torch.where(r == 0, torch.ones_like(r), r)
+            data = _udiv64(l, safe_r) if t == LogicalType.UBIGINT else l // safe_r
+            valid = torch.logical_and(valid, r != 0)
+        elif t.is_integral():
             # SQL integer division truncates toward zero; x/0 -> NULL
             safe_r = torch.where(r == 0, torch.ones_like(r), r)
             q = torch.abs(l) // torch.abs(safe_r)
@@ -119,16 +159,20 @@ def arithmetic(op: str, t: LogicalType, left: Column, right: Column) -> Column:
             data = l / r
     elif op == "%":
         safe_r = torch.where(r == 0, torch.ones_like(r), r)
-        data = l - (torch.abs(l) // torch.abs(safe_r)) * torch.sign(l) * torch.abs(safe_r)
+        if t.is_unsigned_numeric():
+            q = _udiv64(l, safe_r) if t == LogicalType.UBIGINT else l // safe_r
+            data = l - q * safe_r
+        else:
+            data = l - (torch.abs(l) // torch.abs(safe_r)) * torch.sign(l) * torch.abs(safe_r)
         data = data.to(l.dtype)
         valid = torch.logical_and(valid, r != 0)
     else:
         raise ExecutorError(f"unknown arithmetic op {op}")
-    return Column(t, data.to(torch_dtype_for(t)), valid)
+    return Column(t, wrap_unsigned(t, data.to(torch_dtype_for(t))), valid)
 
 
 def negate(col: Column) -> Column:
-    return Column(col.type, -col.data, col.valid)
+    return Column(col.type, wrap_unsigned(col.type, -col.data), col.valid)
 
 
 # ---- comparisons -------------------------------------------------------------
@@ -142,6 +186,8 @@ def _orderable_view(col: Column):
             return torch.zeros_like(col.data, dtype=torch.int64)
         codes = torch.clamp(col.data, 0, len(ranks) - 1).long()
         return ranks[codes]
+    if col.type == LogicalType.UBIGINT:
+        return ubigint_key(col.data)
     return col.data
 
 

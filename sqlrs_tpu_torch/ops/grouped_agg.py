@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data import Column
-from sqlrs_tpu_torch.data.batch import torch_dtype_for
+from sqlrs_tpu_torch.data.batch import torch_dtype_for, ubigint_key
 from sqlrs_tpu_torch.errors import ExecutorError
+from sqlrs_tpu_torch.ops.elementwise import convert_numeric
 from sqlrs_tpu_torch.ops.fused import prefix_sum
 from sqlrs_tpu_torch.ops.hash_table import next_pow2
 from sqlrs_tpu_torch.ops.sort import _encode, _lex_argsort, key_kind
@@ -533,7 +534,7 @@ def _agg_phase2(
             continue
         if name in ("sum", "avg"):
             acc_t = LogicalType.DOUBLE if name == "avg" else rt
-            vals = _unsortable(data, ct).to(torch_dtype_for(acc_t))
+            vals = convert_numeric(_unsortable(data, ct), ct, acc_t)
             sm = run_sum(torch.where(valid, vals, torch.zeros_like(vals)))
             if name == "avg":
                 sm = sm / torch.clamp(counts, min=1).to(torch.float64)
@@ -549,12 +550,18 @@ def _agg_phase2(
             else:
                 if ct.is_float():
                     sentinel = float("inf") if name == "min" else float("-inf")
+                elif ct == LogicalType.UBIGINT:
+                    sentinel = _INT64_MAX if name == "min" else -_INT64_MAX - 1
                 else:
                     ii = np.iinfo(numpy_dtype_for(ct))
                     sentinel = int(ii.max) if name == "min" else int(ii.min)
                 vals = _unsortable(data, ct)
+                if ct == LogicalType.UBIGINT:
+                    vals = ubigint_key(vals)  # unsigned order
                 v = torch.where(valid, vals, torch.full_like(vals, sentinel))
                 best = run_minmax(v, name == "min", sentinel)
+                if ct == LogicalType.UBIGINT:
+                    best = ubigint_key(best)
                 out_data = place(best)
             adata.append(out_data.to(torch_dtype_for(rt)))
             avalid.append(place(has_any.to(torch.int32)) > 0)
@@ -742,7 +749,9 @@ def partial_grouped_fixed(alive, row_idx, keys, aggs, g_cap: int):
 
 def _orderable_inverse(key_field, t: LogicalType):
     """Invert ops/sort.orderable_key for the non-VARCHAR types (identity up
-    to dtype; UBIGINT has no tensor form in this package)."""
+    to dtype, except the UBIGINT signed-range shift)."""
+    if t == LogicalType.UBIGINT:
+        return ubigint_key(key_field)
     return key_field.to(torch_dtype_for(t))
 
 

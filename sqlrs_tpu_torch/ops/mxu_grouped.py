@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data import Column
-from sqlrs_tpu_torch.data.batch import torch_dtype_for
+from sqlrs_tpu_torch.data.batch import torch_dtype_for, ubigint_to_float
 from sqlrs_tpu_torch.ops.mxu_agg import mxu_backend_ok
 from sqlrs_tpu_torch.types import LogicalType
 
@@ -440,7 +440,12 @@ def mxu_grouped_aggregate(key_cols, agg_specs, alive=None):
         [c.data for c in key_cols],
         [c.valid for c in key_cols],
         alive,
-        [c.data for c in val_cols],
+        # value stats are of the values: a UBIGINT bit pattern at or above
+        # 2^63 is a large value, as the JAX package's uint64 stats see it
+        [
+            ubigint_to_float(c.data) if c.type == LogicalType.UBIGINT else c.data
+            for c in val_cols
+        ],
         [c.valid for c in val_cols],
     )
     n_live = int(kvec[0])

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from sqlrs_tpu_torch.data import Column
+from sqlrs_tpu_torch.data.batch import ubigint_key
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
 from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.types import LogicalType
@@ -40,7 +41,7 @@ def key_kind(t: LogicalType) -> str:
     if t in (LogicalType.FLOAT, LogicalType.DOUBLE):
         return "float"
     if t == LogicalType.UBIGINT:
-        raise ExecutorError("type UBIGINT not yet ported to sqlrs_tpu_torch")
+        return "ubigint"
     if (
         t.is_numeric()
         or t in (LogicalType.DATE, LogicalType.INTERVAL, LogicalType.BOOLEAN)
@@ -66,6 +67,8 @@ def _encode(kind: str, data, rank):
         return rank[codes]
     if kind == "float":
         return data.to(torch.float64)
+    if kind == "ubigint":
+        return ubigint_key(data)  # the value less 2^63, as the JAX package
     return data.to(torch.int64)
 
 

@@ -31,9 +31,9 @@ from typing import Optional
 import torch
 
 from sqlrs_tpu_torch.data import Column, DeviceBatch, Schema
-from sqlrs_tpu_torch.data.batch import torch_dtype_for
+from sqlrs_tpu_torch.data.batch import torch_dtype_for, ubigint_key, ubigint_to_float
 from sqlrs_tpu_torch.errors import ExecutorError
-from sqlrs_tpu_torch.exec.executor import Executor, _merge_rows, _schema, not_ported
+from sqlrs_tpu_torch.exec.executor import Executor, _merge_rows, _schema
 from sqlrs_tpu_torch.exec.expression_executor import execute_expr, execute_exprs_fused
 from sqlrs_tpu_torch.ops import elementwise as ew
 from sqlrs_tpu_torch.parallel import collectives
@@ -141,10 +141,9 @@ class DistributedExecutor:
     never gated on distribution support)."""
 
     def __init__(self, db, mesh, profile=None) -> None:
-        if profile is not None:
-            raise not_ported("query profiling (profile=True)")
         self.db = db
         self.mesh = mesh
+        self.profile = profile  # utils/profiling.QueryProfile | None
 
     # ---- entry ---------------------------------------------------------------
 
@@ -157,7 +156,15 @@ class DistributedExecutor:
         method = getattr(self, "_dexec_" + name, None)
         if method is None:
             return self._fallback(op)
-        return method(op)
+        if self.profile is None:
+            return method(op)
+        with self.profile.measure("dist:" + op.explain_line()[:54]) as stats:
+            out = method(op)
+            if isinstance(out, ShardedBatch):
+                stats.rows_out = _host_sum(self.mesh, out.alive)
+            else:
+                stats.rows_out = out.num_rows
+        return out
 
     def _fallback(self, op: P.PhysicalOperator) -> DeviceBatch:
         """Materialize children, then run the standard executor for this op."""
@@ -305,13 +312,17 @@ class DistributedExecutor:
         if cnt == 0:
             return ScalarValue(rt, None)
         if name in ("sum", "avg"):
-            acc_t = torch.float64 if name == "avg" else torch_dtype_for(rt)
+            acc_t = LogicalType.DOUBLE if name == "avg" else rt
             s = collectives.reduce_sum(mesh, [
-                torch.where(o, c.data.to(acc_t), 0).sum(dtype=acc_t)
+                torch.where(o, ew.convert_numeric(c.data, c.type, acc_t), 0).sum(
+                    dtype=torch_dtype_for(acc_t)
+                )
                 for o, c in zip(ok, col)
             ])
             if name == "avg":
                 return ScalarValue(rt, float(s) / cnt)
+            if rt == LogicalType.UBIGINT:
+                return ScalarValue(rt, int(s) % 2**64)  # the int64 bit pattern
             return ScalarValue(rt, float(s) if rt.is_float() else int(s))
         if name in ("min", "max"):
             want_min = name == "min"
@@ -329,18 +340,23 @@ class DistributedExecutor:
                 s = int(torch.argmin(vals) if want_min else torch.argmax(vals))
                 return view_scalar(col[s], int(best[s, 1]))
             dt = col[0].data.dtype
+            unsigned64 = col[0].type == LogicalType.UBIGINT
             if dt.is_floating_point:
                 sent = float("inf") if want_min else float("-inf")
             else:
                 ii = torch.iinfo(dt)
                 sent = ii.max if want_min else ii.min
+            # UBIGINT compares in unsigned order: through its signed key
+            datas = [ubigint_key(c.data) if unsigned64 else c.data for c in col]
             parts = [
-                torch.where(o, c.data, torch.full_like(c.data, sent)).amin()
+                torch.where(o, d, torch.full_like(d, sent)).amin()
                 if want_min else
-                torch.where(o, c.data, torch.full_like(c.data, sent)).amax()
-                for o, c in zip(ok, col)
+                torch.where(o, d, torch.full_like(d, sent)).amax()
+                for o, d in zip(ok, datas)
             ]
             r = (collectives.reduce_min if want_min else collectives.reduce_max)(mesh, parts)
+            if unsigned64:
+                return ScalarValue(rt, (int(r) + 2**63) % 2**64)
             return ScalarValue(rt, float(r) if rt.is_float() else int(r)).cast_to(rt)
         raise ExecutorError(f"unknown aggregate {name}")
 
@@ -569,11 +585,18 @@ class DistributedExecutor:
                 # accumulate int64 so the final division matches the
                 # single-device float64(int_sum)/count exactly
                 if name == "avg":
-                    acc_dt = torch.float64 if c[0].data.is_floating_point() else torch.int64
+                    acc_t = (
+                        LogicalType.DOUBLE
+                        if c[0].type.is_float() or c[0].type == LogicalType.UBIGINT
+                        else LogicalType.BIGINT
+                    )
                 else:
-                    acc_dt = torch_dtype_for(a.return_type())
+                    acc_t = a.return_type()
                 plan.append((name, len(sum_cols), len(sum_cols) + 1, None))
-                sum_cols.append([torch.where(x.valid, x.data.to(acc_dt), 0) for x in c])
+                sum_cols.append([
+                    torch.where(x.valid, ew.convert_numeric(x.data, x.type, acc_t), 0)
+                    for x in c
+                ])
                 sum_cols.append(valid_cnt)
             else:  # min / max
                 mks, vcs = [], []
@@ -834,7 +857,15 @@ class DistributedExecutor:
                 out_dt = torch_dtype_for(c[0].type)
             agg_desc.append(name)
             for s in rng:
-                aggs[s].append((name, c[s].data, c[s].valid, None, out_dt))
+                data = c[s].data
+                if c[s].type == LogicalType.UBIGINT:
+                    # avg sums the values as floats; min/max run on the
+                    # signed key of the unsigned order (undone at the merge)
+                    if name == "avg":
+                        data = ubigint_to_float(data)
+                    elif name in ("min", "max"):
+                        data = ubigint_key(data)
+                aggs[s].append((name, data, c[s].valid, None, out_dt))
 
         cap_local = child.local
         row_idx = child.rowid or shard_positions(mesh, cap_local)
@@ -901,6 +932,8 @@ class DistributedExecutor:
                     best = torch.where(has, best, NULL_CODE)
                 else:
                     src_t = agg_cols[j][0].type
+                    if src_t == LogicalType.UBIGINT:
+                        best = ubigint_key(best)
                 result_plan.append(("direct", len(merge_specs), rt))
                 merge_specs.append(
                     ("min" if kind in ("min", "vmin") else "max",

@@ -26,7 +26,7 @@ from sqlrs_tpu_torch.binder.binder import Binder
 from sqlrs_tpu_torch.catalog.catalog import Catalog, ColumnDefinition
 from sqlrs_tpu_torch.data import DeviceBatch
 from sqlrs_tpu_torch.errors import ExecutorError, SqlrsError
-from sqlrs_tpu_torch.exec.executor import Executor, not_ported
+from sqlrs_tpu_torch.exec.executor import Executor
 from sqlrs_tpu_torch.functions.table import BUILTIN_TABLE_FUNCTIONS
 from sqlrs_tpu_torch.parser import ast, parse
 from sqlrs_tpu_torch.plan.logical import LogicalExplain, explain_tree as explain_logical
@@ -60,9 +60,11 @@ class Database:
         are fewer (several shards share one card only through a mesh that
         lists it several times). With a mesh, `device` is shard 0's: the
         controller's device, where delegated operators run and results are
-        collected. `profile` is not ported yet."""
-        if profile:
-            raise not_ported("query profiling (profile=True)")
+        collected.
+
+        `profile` (or SQLRS_TPU_PROFILE=1) records each statement's
+        per-operator QueryProfile in `last_profile` (utils/profiling.py:
+        host-clock times at operator boundaries, not device times)."""
         if mesh is None and n_devices is not None:
             from sqlrs_tpu_torch.parallel.mesh import make_mesh
 
@@ -80,6 +82,10 @@ class Database:
         # relative csv paths in SQL resolve against base_dir (the reference
         # resolves against its repo root when running the slt suite)
         self.base_dir = base_dir or os.getcwd()
+        from sqlrs_tpu_torch.utils.profiling import profiling_enabled
+
+        self.profile_enabled = profile or profiling_enabled()
+        self.last_profile = None  # QueryProfile of the most recent statement
 
     # ---- storage helpers ------------------------------------------------------
 
@@ -189,13 +195,20 @@ class Database:
             phys.plan_strings = dict(plan.plan_strings)
             phys.plan_strings["physical_plan"] = explain_physical(phys.children[0])
 
+        profile = None
+        if self.profile_enabled:
+            from sqlrs_tpu_torch.utils.profiling import QueryProfile
+
+            profile = QueryProfile()
         if self.mesh is not None:
             from sqlrs_tpu_torch.parallel.dist_executor import DistributedExecutor
 
             self.last_join_strategies = []  # strategy picks, in exec order
-            batch = DistributedExecutor(self, self.mesh).run(phys)
+            batch = DistributedExecutor(self, self.mesh, profile=profile).run(phys)
         else:
-            batch = Executor(self).execute(phys)
+            batch = Executor(self, profile=profile).execute(phys)
+        if profile is not None:
+            self.last_profile = profile
         return [batch] if len(batch.schema) > 0 else []
 
     def _optimize(self, plan):

@@ -11,8 +11,9 @@ Date32, else Utf8. Empty fields are NULL for non-utf8 columns and the empty
 string for utf8 columns (this is what makes `(empty)` vs NULL rendering in
 the slt suite come out right).
 
-This package reads CSV on this Python path only; the JAX package's native
-C++ loader (native/csv_loader.cpp) is not ported yet.
+A native C++ loader (native/csv_loader.cpp, bound in storage/native_loader.py)
+takes the hot parse path when it builds; this module is the always-available
+fallback and the single source of truth for inference semantics.
 """
 
 from __future__ import annotations
@@ -59,7 +60,18 @@ def _infer_column_type(values: list[str]) -> LogicalType:
 
 
 def load_csv(path: str, config: CsvConfig | None = None) -> DataTable:
-    """The session's CSV entry point."""
+    """Preferred entry: the native C++ parser (native/csv_loader.cpp) when it
+    builds, else the in-Python reference implementation below. Both produce
+    identical tables (tests/test_torch_native_loader.py cross-checks)."""
+    from sqlrs_tpu_torch.storage import native_loader
+
+    if native_loader.native_available():
+        try:
+            return native_loader.read_csv_native(path, config)
+        except StorageError:
+            raise
+        except Exception:
+            pass  # any binding-level surprise falls back to the Python path
     return read_csv_file(path, config)
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from sqlrs_tpu_torch.data import Column, DeviceBatch, Schema, SchemaField
-from sqlrs_tpu_torch.data.batch import host_to_device, scalars_to_numpy, torch_dtype_for
+from sqlrs_tpu_torch.data.batch import host_to_device, scalars_to_numpy, storage_np
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, NULL_CODE
 from sqlrs_tpu_torch.errors import StorageError
 from sqlrs_tpu_torch.types import LogicalType, ScalarValue, numpy_dtype_for
@@ -30,8 +30,6 @@ TILE = 1024  # row-tile granularity of the host master copy
 
 class DataTable:
     def __init__(self, names: list[str], types: list[LogicalType]) -> None:
-        for t in types:
-            torch_dtype_for(t)  # raises for types with no tensor form yet
         self.names = list(names)
         self.types = list(types)
         self._capacity = 0
@@ -107,7 +105,7 @@ class DataTable:
             snap = [
                 Column(
                     t,
-                    host_to_device(self._data[i][: self._num_rows], device),
+                    host_to_device(storage_np(t, self._data[i][: self._num_rows]), device),
                     host_to_device(self._valid[i][: self._num_rows], device),
                 )
                 for i, t in enumerate(self.types)

@@ -261,28 +261,17 @@ def test_unported_operators_raise(sql_dbs, sql, what):
     assert port.last_fused_routes == ref.last_fused_routes, what
 
 
-@pytest.mark.parametrize(
-    "kwargs", [{"n_devices": 2}, {"profile": True}], ids=["n_devices", "profile"]
-)
+@pytest.mark.parametrize("kwargs", [{"n_devices": 2}], ids=["n_devices"])
 def test_unported_database_options_raise(kwargs):
-    """profile=True is not ported yet. n_devices is (the sharded engine,
-    here 2 shards on the CPU), but its multi-process layer is not."""
-    if "n_devices" in kwargs:
-        from sqlrs_tpu_torch.parallel import mesh
+    """n_devices is ported (the sharded engine, here 2 shards on the CPU),
+    but its multi-process layer is not. (profile=True is ported: see
+    tests/test_torch_profiling.py.)"""
+    from sqlrs_tpu_torch.parallel import mesh
 
-        assert sqlrs_tpu_torch.Database(device="cpu", **kwargs).mesh.size == 2
-        for fn in (mesh.initialize_distributed, mesh.make_multihost_mesh):
-            with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-                fn()
-        return
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        sqlrs_tpu_torch.Database(device="cpu", **kwargs)
-
-
-def test_unsigned_types_raise():
-    port = sqlrs_tpu_torch.Database(device="cpu")
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.run("create table z(v int unsigned)")
+    assert sqlrs_tpu_torch.Database(device="cpu", **kwargs).mesh.size == 2
+    for fn in (mesh.initialize_distributed, mesh.make_multihost_mesh):
+        with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
+            fn()
 
 
 CSV_TEXT = (
