@@ -2,9 +2,11 @@
 TPC-H Q1/Q6 at scale factor 1, the star rollup at bench.py's size, and all
 22 TPC-H queries at scale factor 1, all through
 `Database(device="cuda").run`, then the sharded engine over 4 shards on
-the same card.
+the same card, in one process and over torch.distributed.
 
     python3 chip_smoke.py
+
+(`--mp-child SPEC` is how phase 10 starts its processes.)
 
 Phases, each printing one line or a few:
   1. build       — nvcc builds every kernel source in sqlrs_tpu_torch/csrc/,
@@ -96,6 +98,28 @@ Phases, each printing one line or a few:
                    Q1/Q6 from it equal to the numpy-loaded table; then
                    `python -m sqlrs_tpu_torch.cli --device cuda` on it, its
                    table text equal to pretty_table of Database.run's.
+
+ 10. the multi-process layer (printed as phases comparison_strategies and
+                   multiprocess): make_join_groupby's 'hash', 'sorted' and
+                   'sorted_packed' on bench.py's dense and spread star beside
+                   'direct' (kernel 2 on the dense one), each exact against
+                   numpy, and mxu_groupby_dense_xla bit-equal to kernel 2 at
+                   2^25 x 2^16 with both timed (CUDA events, device time).
+                   Then phase 6's tables, pickled once into a temporary
+                   directory, and child processes of this script (each with
+                   a timeout, all killed past it): two processes over gloo,
+                   each with 2 shards on the card (CUDA tensors staged
+                   through host memory), run bench.py's star through the
+                   broadcast, shuffle_checked, salted_checked and ring
+                   strategies (exact against numpy) and all 22 queries, one
+                   cold and one warm run each; a one-rank NCCL group with 4
+                   shards runs the star and Q3, Q5, Q12, Q13, Q18, Q22; two
+                   NCCL ranks, one a card, only with two cards (else the
+                   line `nccl_2rank: not run (1 card)`). Every process's rows
+                   must equal phase 6's single-device rows by the phase's
+                   rule; printed beside phase 8's ms: warm ms, bytes across
+                   processes, host staging ms, peak memory a process, join
+                   strategies, kernel launches.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -579,14 +603,15 @@ def rank_inputs(rng, nq: int, dev, nb: int = 64, sorted_rows: bool = True, offse
     return rows + [torch.from_numpy(a).to(dev) for a in (b, q, rem)]
 
 
-def device_ms(fn, match: str, calls: int = 20, flush=None) -> float:
+def device_ms(fn, match: str, calls: int = 20, flush=None, at_least: float = 0.0) -> float:
     """Device milliseconds per call of fn(), which launches one kernel whose
     name holds `match`: the mean duration of torch.profiler's records of
     that kernel over `calls` calls, after two warm-up calls. The profiler
     may drop a record or two of a window (seen on the H100); a trace with
-    fewer than half the calls' records is taken again, at most three times,
-    and more records than calls raise. With `flush`, flush() runs before
-    each call."""
+    fewer than half the calls' records, or with a mean under `at_least` ms
+    (a time the kernel cannot take, such as half its time by CUDA events),
+    is taken again, at most three times, and then raises; more records than
+    calls raise. With `flush`, flush() runs before each call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -606,9 +631,10 @@ def device_ms(fn, match: str, calls: int = 20, flush=None) -> float:
         n = sum(e.count for e in events)
         if n > calls:
             raise AssertionError(f"{n} launches of {match} in {calls} calls")
-        if us > 0 and 2 * n >= calls:
+        if us > 0 and 2 * n >= calls and us / 1e3 / n >= at_least:
             return us / 1e3 / n
-    raise AssertionError(f"torch.profiler traced {n} records of {match} for {calls} calls")
+    raise AssertionError(f"torch.profiler traced {n} records of {match} for {calls} calls, "
+                         f"{us / 1e3:.4f} ms in all (at least {at_least:.4f} ms a call)")
 
 
 def l2_flusher(dev):
@@ -1550,7 +1576,8 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
     (floats rel 1e-9 or abs 1e-6, the rest exact). Then one profiled warm
     run of each query (syncs, launches, device time) and a profile of the
     whole sharded suite. Returns each kernel's launches in the timed runs,
-    which are this path's."""
+    which are this path's, the database and each query's results (phase 10
+    prints its times beside them)."""
     import sqlrs_tpu_torch
     from sqlrs_tpu_torch.benchmarks import tpch_dbgen
 
@@ -1620,7 +1647,7 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
                   "on one card, one after another",
                   lambda: [db.run(stmt) for qn in range(1, 23) for stmt in tpch_statements(qn)],
                   runs=1, functions=DIST_FUNCTIONS, warmups=0, timed=1)
-    return launches, db
+    return launches, db, results
 
 
 # ---- phase 9: the remaining modules on the card ---------------------------
@@ -2140,6 +2167,322 @@ def phase_csv_cli(dev, card: str, tmpdir: str) -> int:
     return launches
 
 
+# ---- phase 10: multi-process execution and the comparison strategies ------
+
+MP_PROCS, MP_SHARDS = 2, 2       # gloo: two processes, two shards each, one card
+NCCL_SHARDS = 4                  # the one-rank NCCL group's local shards
+NCCL_QUERIES = (3, 5, 12, 13, 18, 22)
+MP_TIMEOUT_S = 480               # each group of child processes, all killed past it
+
+
+def mp_child(spec: dict) -> int:
+    """One process of phase 10 (`chip_smoke.py --mp-child SPEC`): joins the
+    process group, builds the flat mesh of its `shards` shards on its card,
+    runs bench.py's star through the four strategies (each one cold and one
+    warm run, exact against numpy, or raises) and then the TPC-H queries on
+    the tables the parent wrote (one cold and one warm run each), and
+    writes rows, times, bytes across processes, host staging time, join
+    strategies, peak memory and kernel launches to spec["out"]."""
+    import pickle
+
+    import torch.distributed as dist
+
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import tpch_dbgen
+    from sqlrs_tpu_torch.parallel import dist_ops
+    from sqlrs_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    dev = torch.device("cuda", spec["card"])
+    torch.cuda.set_device(dev)
+    os.environ["LOCAL_RANK"] = str(spec["card"])
+    initialize_distributed(spec["init"], spec["n_proc"], spec["rank"],
+                           backend=spec["backend"])
+    mesh = make_mesh(devices=[dev] * spec["shards"])
+    out = {"rank": spec["rank"], "mesh": repr(mesh), "star": {}, "tpch": {}}
+    _zero_kernel_counts()
+
+    star = gen_star()
+    gid, v = star["gid"], star["v"]
+    keys = np.arange(STAR_GROUPS, dtype=np.int64)
+    exp_s = np.bincount(gid, weights=v, minlength=STAR_GROUPS).astype(np.int64)
+    exp_c = np.bincount(gid, minlength=STAR_GROUPS).astype(np.int64)
+    fk, fv, dk = (torch.from_numpy(a).to(dev) for a in (keys[gid], v, keys))
+    g = STAR_GROUPS
+    cap0 = 2 * STAR_ROWS // (mesh.size * mesh.size)
+    strategies = {
+        "broadcast": lambda: dist_ops.dist_join_groupby_broadcast(mesh, fk, fv, dk, g),
+        "shuffle_checked": lambda: dist_ops.dist_join_groupby_shuffle_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0),
+        "salted_checked": lambda: dist_ops.dist_join_groupby_salted_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0, hot_capacity=1024),
+        "ring": lambda: dist_ops.dist_join_groupby_ring(mesh, fk, fv, dk, g),
+    }
+    for name, fn in strategies.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(2):  # one cold run, then one warm run
+            mesh.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums, cnts = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not (np.array_equal(sums.cpu().numpy(), exp_s)
+                    and np.array_equal(cnts.cpu().numpy(), exp_c)):
+                raise AssertionError(f"{spec['label']} rank {spec['rank']}: "
+                                     f"dist_join_groupby_{name} != numpy")
+        out["star"][name] = {"ms": times, "bytes": mesh.stats["bytes"],
+                             "staging_s": mesh.stats["staging_s"],
+                             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del fk, fv, dk, star, sums, cnts
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with open(spec["tables"], "rb") as f:
+        tables = pickle.load(f)
+    db = sqlrs_tpu_torch.Database(mesh=mesh)
+    tpch_dbgen.load_into(db, tables)
+    for name in tables:
+        db.catalog.table(name).storage.scan(dev)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    for qn in spec["queries"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(2):  # one cold run, then one warm run
+            mesh.reset_stats()
+            rows, t = tpch_run(db, qn)
+            ms.append(t)
+        out["tpch"][qn] = {
+            "rows": rows, "ms": ms, "bytes": mesh.stats["bytes"],
+            "staging_s": mesh.stats["staging_s"],
+            "strategies": list(db.last_join_strategies),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        }
+    out["launches"] = _kernel_counts()
+    with open(spec["out"], "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_children(label: str, tmpdir: str, backend: str, n_proc: int, shards: int,
+                 cards: list, queries, tables_path: str) -> list:
+    """Start n_proc phase-10 children on one file:// rendezvous and wait for
+    them, all killed when MP_TIMEOUT_S passes; raises with a child's output
+    when one fails. Returns their results in rank order."""
+    import pickle
+
+    outs = [os.path.join(tmpdir, f"{label}_{r}.pkl") for r in range(n_proc)]
+    procs = []
+    for r in range(n_proc):
+        spec = {"label": label, "rank": r, "n_proc": n_proc, "shards": shards,
+                "card": cards[r], "backend": backend, "init": f"file://{tmpdir}/rdv_{label}",
+                "queries": list(queries), "tables": tables_path, "out": outs[r]}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mp-child",
+             json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO))
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    results = []
+    for path in outs:
+        with open(path, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _report_children(label: str, card: str, results: list, single: dict, dist: dict) -> dict:
+    """Holds every child's rows to phase 6's single-device rows, prints the
+    star and per-query lines, and returns the children's kernel launches."""
+    for res in results:
+        for qn, r in res["tpch"].items():
+            tpch_compare(r["rows"], single[qn]["rows"],
+                         f"Q{qn} ({label} rank {res['rank']} vs single device)")
+    loads = ", ".join(f"{r['load_s']:.1f}" for r in results)
+    print(f"  {label}: {len(results)} process(es), {results[0]['mesh']}; tables loaded "
+          f"in {loads} s", flush=True)
+    for name in results[0]["star"]:
+        rs = [r["star"][name] for r in results]
+        print(f"    star {name}: cold {max(x['ms'][0] for x in rs):.1f} ms, warm "
+              f"{max(x['ms'][1] for x in rs):.1f} ms (slowest process); equal numpy's "
+              f"exactly in every process; bytes across processes {sum(x['bytes'] for x in rs)}, "
+              f"host staging {max(x['staging_s'] for x in rs) * 1e3:.1f} ms; peak device "
+              f"memory {max(x['peak_gb'] for x in rs):.2f} GB a process [{card}]", flush=True)
+    total, total_dist = 0.0, 0.0
+    for qn in results[0]["tpch"]:
+        rs = [r["tpch"][qn] for r in results]
+        warm = max(x["ms"][1] for x in rs)
+        one = float(np.median(single[qn]["ms"][1:]))
+        d4 = float(np.median(dist[qn]["ms"][1:]))
+        total += warm
+        total_dist += d4
+        print(f"    Q{qn}: warm {warm:.1f} ms (cold {max(x['ms'][0] for x in rs):.1f}) vs "
+              f"{d4:.1f} ms on phase 8's 4 single-controller shards = {warm / d4:.2f}x, "
+              f"{one:.1f} ms on one device; bytes "
+              f"across processes {sum(x['bytes'] for x in rs)}, host staging "
+              f"{max(x['staging_s'] for x in rs) * 1e3:.1f} ms; peak "
+              f"{max(x['peak_gb'] for x in rs):.2f} GB a process; strategies "
+              f"{rs[0]['strategies']}", flush=True)
+    print(f"    {len(results[0]['tpch'])} queries equal the single-device rows in every "
+          f"process; sum of warm ms {total:.1f} vs {total_dist:.1f} on phase 8's shards "
+          f"[{card}]", flush=True)
+    launches = {k: 0 for k in results[0]["launches"]}
+    for res in results:
+        for k, n in res["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def device_total_ms(fn, calls: int = 3) -> float:
+    """Device milliseconds per call of fn(): the sum of every CUDA kernel
+    record torch.profiler traced over `calls` calls, after one warm-up; a
+    trace with no records is taken again, at most three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(float(getattr(e, "self_device_time_total", 0) or
+                       getattr(e, "self_cuda_time_total", 0) or 0)
+                 for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / calls
+    raise AssertionError("torch.profiler traced no device time")
+
+
+def phase_comparison_strategies(dev, card: str, star: dict) -> dict:
+    """make_join_groupby's 'hash', 'sorted' and 'sorted_packed' on bench.py's
+    dense and spread star beside 'direct' (kernel 2 on the dense star):
+    one cold and two warm runs each, exact against numpy. Then
+    mxu_groupby_dense_xla (the one-hot product formulation) against
+    kernel 2 at 2^25 rows x 2^16 groups: bit-equal, CUDA-event ms and
+    device ms of each. Returns kernel 2's launches in the strategy runs."""
+    from sqlrs_tpu_torch.ops.mxu_agg import dense_group_sums, mxu_groupby_dense_xla
+    from sqlrs_tpu_torch.ops.pipelines import make_join_groupby
+
+    gid, v = star["gid"], star["v"]
+    dense = np.arange(STAR_GROUPS, dtype=np.int64)
+    exp_s = np.bincount(gid, weights=v, minlength=STAR_GROUPS).astype(np.int64)
+    exp_c = np.bincount(gid, minlength=STAR_GROUPS).astype(np.int64)
+    fv = torch.from_numpy(v).to(dev)
+    print(f"phase comparison_strategies: fact {STAR_ROWS} rows x dim {STAR_GROUPS} keys",
+          flush=True)
+    _zero_kernel_counts()
+    for layout, dim in (("dense", dense), ("spread", dense * 1013904223 + 12345)):
+        fk = torch.from_numpy(dim[gid]).to(dev)
+        dk = torch.from_numpy(dim).to(dev)
+        meta = {"key_max": int(dim.max()), "val_max": 99}
+        if layout == "dense":
+            meta.update(dim_min=0, dim_max=STAR_GROUPS - 1)
+        calls = {
+            "direct": lambda: make_join_groupby(STAR_GROUPS)(fk, fv, dk, **meta),
+            "hash": lambda: make_join_groupby(STAR_GROUPS, "hash")(fk, fv, dk),
+            "sorted": lambda: make_join_groupby(STAR_GROUPS, "sorted")(fk, fv, dk),
+            "sorted_packed": lambda: make_join_groupby(STAR_GROUPS, "sorted_packed")(
+                fk, fv, dk, val_bits=7),
+        }
+        parts = []
+        for name, fn in calls.items():
+            times = []
+            for _ in range(3):  # one cold run, then two warm runs
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sums, cnts = fn()[:2]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not (np.array_equal(sums.cpu().numpy(), exp_s)
+                        and np.array_equal(cnts.cpu().numpy(), exp_c)):
+                    raise AssertionError(f"make_join_groupby {name!r} ({layout}) != numpy")
+            parts.append(f"{name} {float(np.median(times[1:])):.2f} ms (cold {times[0]:.1f})")
+        print(f"  {layout}: warm " + "; ".join(parts) + f"; each equal numpy's exactly [{card}]",
+              flush=True)
+    launches = _kernel_counts()
+    if launches["dense_group_sums"] < 3:
+        raise AssertionError("'direct' on the dense star did not launch dense_group_sums")
+
+    keys = torch.from_numpy(gid).to(dev)
+    xs, xc = mxu_groupby_dense_xla(keys, fv, STAR_GROUPS, 7)
+    ks, kc = dense_group_sums(keys, fv, STAR_GROUPS)
+    if not (torch.equal(xs, ks) and torch.equal(xc, kc)
+            and np.array_equal(xs.cpu().numpy(), exp_s)):
+        raise AssertionError("mxu_groupby_dense_xla != dense_group_sums")
+    xla_ms = cuda_ms(lambda: mxu_groupby_dense_xla(keys, fv, STAR_GROUPS, 7), reps=3)
+    k2_ms = cuda_ms(lambda: dense_group_sums(keys, fv, STAR_GROUPS), reps=5, per=10)
+    xla_dev = device_total_ms(lambda: mxu_groupby_dense_xla(keys, fv, STAR_GROUPS, 7))
+    k2_dev = device_ms(lambda: dense_group_sums(keys, fv, STAR_GROUPS), "dense_group_sums",
+                       at_least=k2_ms / 2)
+    print(f"  mxu_groupby_dense_xla vs dense_group_sums at {STAR_ROWS} x {STAR_GROUPS}: "
+          f"bit-equal (and equal numpy's); {xla_ms:.2f} ms vs {k2_ms:.3f} ms by CUDA events, "
+          f"device {xla_dev:.2f} ms vs {k2_dev:.3f} ms [{card}]", flush=True)
+    return launches
+
+
+def phase_multiprocess(dev, card: str, tmpdir: str, tables_path: str, single: dict,
+                       dist: dict) -> dict:
+    """Phase 10: the sharded engine over several processes. Two processes
+    (gloo, each with 2 shards on this card, CUDA tensors staged through host
+    memory) run the star's strategies and all 22 queries; a one-rank NCCL
+    group with 4 shards runs the star and six queries; two NCCL ranks, one
+    a card, only where there are two cards. Every child's rows must equal
+    phase 6's single-device rows. Returns the children's kernel launches."""
+    print(f"phase multiprocess: the sharded engine over torch.distributed; tables "
+          f"from {os.path.basename(tables_path)} ({os.path.getsize(tables_path) / 1e9:.2f} GB)",
+          flush=True)
+    t0 = time.perf_counter()
+    launches = _report_children(
+        "gloo_2proc", card,
+        run_children("gloo_2proc", tmpdir, "gloo", MP_PROCS, MP_SHARDS, [0] * MP_PROCS,
+                     range(1, 23), tables_path),
+        single, dist)
+    nccl = _report_children(
+        "nccl_1rank", card,
+        run_children("nccl_1rank", tmpdir, "nccl", 1, NCCL_SHARDS, [0], NCCL_QUERIES,
+                     tables_path),
+        single, dist)
+    for k, n in nccl.items():
+        launches[k] += n
+    if torch.cuda.device_count() >= 2:
+        two = _report_children(
+            "nccl_2rank", card,
+            run_children("nccl_2rank", tmpdir, "nccl", 2, 2, [0, 1], NCCL_QUERIES,
+                         tables_path),
+            single, dist)
+        for k, n in two.items():
+            launches[k] += n
+    else:
+        print("  nccl_2rank: not run (1 card)", flush=True)
+    print(f"  phase multiprocess took {time.perf_counter() - t0:.1f} s; launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items())} [{card}]", flush=True)
+    return launches
+
+
+def write_tables(tables: dict, tmpdir: str) -> str:
+    """Pickle the tables (numpy columns) once for phase 10's children."""
+    import pickle
+
+    path = os.path.join(tmpdir, "tpch_sf1.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(tables, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
 def build_all() -> None:
     """Build every kernel source at once: one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2204,17 +2547,22 @@ def main() -> int:
 
     mesh = make_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS)
     phase_dist_star(dev, card, star, mesh)
-    del star
-    launches_dist, dist_db = phase_dist_tpch(dev, card, mesh, tables22, results22)
+    launches_dist, dist_db, results_dist = phase_dist_tpch(dev, card, mesh, tables22, results22)
     hist_launches += phase_profiled22(
         card, f"TPC-H SF {TPCH22_SF} over {mesh.size} shards on one card (dist: labels)",
         dist_db, results22)
-    del dist_db, tables22
+    del dist_db
+    # phase 10's children read phase 6's tables from here, the same bytes each
+    tables_path = write_tables(tables22, tmp.name)
+    del tables22
     torch.cuda.empty_cache()
     hist_launches += phase_unsigned(dev, card)
     hist_launches += phase_csv_cli(dev, card, os.path.join(tmp.name, "csv"))
+    launches_b = phase_comparison_strategies(dev, card, star)
+    del star
+    launches_mp = phase_multiprocess(dev, card, tmp.name, tables_path, results22, results_dist)
     tmp.cleanup()
-    for extra in (launches22, launches_dist):
+    for extra in (launches22, launches_dist, launches_b, launches_mp):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
             launches[name] += extra[name]
@@ -2244,4 +2592,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--mp-child":
+        sys.exit(mp_child(json.loads(sys.argv[2])))
     sys.exit(main())

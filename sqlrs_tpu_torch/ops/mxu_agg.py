@@ -16,7 +16,9 @@ Selection (`mxu_eligible`) keeps the reference's bounds, so the same queries
 take the same variant. Its backend test reads SQLRS_TPU_MXU: "0" never,
 "interpret" on any device (how the CPU tests exercise the selection with
 the plain version), and "auto" (the default) only for data on a CUDA
-device. `mxu_groupby_dense_xla` is not ported: no production path runs it.
+device. `mxu_groupby_dense_xla` is the reference's formulation outside any
+kernel, its measured comparison point: one-hot products of 8192-row blocks
+with a float64 carry, in plain PyTorch (no production path runs it).
 """
 
 from __future__ import annotations
@@ -217,4 +219,58 @@ def mxu_groupby_dense(keys, vals, n_groups: int, val_bits: int,
         dim_perm = torch.argsort(dim_keys)
         sums = _scatter(dim_perm, sums, n_groups)
         counts = _scatter(dim_perm, counts, n_groups)
+    return sums, counts
+
+
+_XLA_BLOCKS_PER_STEP = 8  # blocks of mxu_groupby_dense_xla in one batched product
+
+
+def mxu_groupby_dense_xla(keys, vals, n_groups: int, val_bits: int, block: int = 8192):
+    """The reference's plain formulation of the dense-group sums (its
+    `lax.scan` of one-hot dot_generals): per 8192-row block, the (gh, block)
+    one-hot of gid // 256 times the (block, 256) one-hot of gid % 256
+    weighted by the in-range mask (counts) and by each 8-bit value limb,
+    accumulated in float32 per block and carried in float64.
+
+    The reference multiplies bfloat16 operands into float32. Every operand
+    here is 0, 1 or a limb <= 255, exact in bfloat16 and float32 alike,
+    and a block's entry is at most 8192 x 255 < 2^24, so float32 products
+    give the same bits; the carry adds integers below 2^53, so adding
+    _XLA_BLOCKS_PER_STEP blocks' products together (one batched matmul) does
+    not change the result either. Returns exact int64 (sums, counts).
+    Keys outside [0, n_groups) are misses."""
+    dev = keys.device
+    n = keys.shape[0]
+    gh = -(-n_groups // K_LO)
+    nlimbs = max(1, -(-val_bits // 8))
+    nch = 1 + nlimbs
+    pad = (-n) % block
+    k32 = keys.to(torch.int32)
+    v32 = vals.to(torch.int32)
+    if pad:
+        k32 = torch.cat([k32, torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+        v32 = torch.cat([v32, torch.zeros(pad, dtype=torch.int32, device=dev)])
+    k2 = k32.view(-1, block)
+    v2 = v32.view(-1, block)
+    hi_iota = torch.arange(gh, dtype=torch.int32, device=dev)[None, :, None]
+    lo_iota = torch.arange(K_LO, dtype=torch.int32, device=dev)[None, None, :]
+    carry = torch.zeros(gh, nch, K_LO, dtype=torch.float64, device=dev)
+    step = _XLA_BLOCKS_PER_STEP
+    for b0 in range(0, k2.shape[0], step):
+        kb, vb = k2[b0:b0 + step], v2[b0:b0 + step]
+        inr = (kb >= 0) & (kb < n_groups)
+        gid = torch.where(inr, kb, 0)
+        a_t = (hi_iota == (gid // K_LO)[:, None, :]).to(torch.float32)   # (B, gh, block)
+        l_t = (lo_iota == (gid % K_LO)[:, :, None]).to(torch.float32)    # (B, block, K_LO)
+        w0 = inr.to(torch.float32)
+        weights = [w0] + [((vb >> (8 * j)) & 255).to(torch.float32) * w0
+                          for j in range(nlimbs)]
+        rhs = torch.cat([l_t * w[:, :, None] for w in weights], 2)      # (B, block, nch*K_LO)
+        prod = torch.bmm(a_t, rhs)                                       # (B, gh, nch*K_LO)
+        carry += prod.view(-1, gh, nch, K_LO).to(torch.float64).sum(0)
+    chans = carry.permute(1, 0, 2).reshape(nch, gh * K_LO)[:, :n_groups]
+    counts = chans[0].to(torch.int64)
+    sums = torch.zeros(n_groups, dtype=torch.int64, device=dev)
+    for j in range(nlimbs):
+        sums = sums + (chans[1 + j].to(torch.int64) << (8 * j))
     return sums, counts

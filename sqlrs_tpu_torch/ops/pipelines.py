@@ -1,12 +1,17 @@
 """Fused join + group-by pipelines: the star-rollup path.
 
-The port of the parts of sqlrs_tpu/ops/pipelines.py that the fused route
-(exec/fused_route.py) and `make_join_groupby('direct')` run:
+The port of sqlrs_tpu/ops/pipelines.py. The fused route
+(exec/fused_route.py) and `make_join_groupby('direct')` run
 `join_groupby_direct`, `join_groupby_minmax_tv`, `join_groupby_firstapp`,
 their rank stage (`_sorted_ranks_left`, `_ranks_and_value_prefix`) and the
 order-preserving float transform. Each computes fact ⋈ dim + GROUP BY the
 dim key for unique dim keys from ONE packed sort, prefix sums and range
 queries in the packed domain, without materializing the join.
+`make_join_groupby`'s other strategies are the reference's comparison
+points, which no production path reaches: 'hash' (`join_groupby_local`,
+over ops/hash_table.py's open-addressing table), 'sorted' and
+'sorted_packed' (`join_groupby_sorted(_packed)`: run boundaries of the
+sorted fact keys, one range query per run).
 
 The reference's `lax.sort` calls become `torch.sort` (one key: the order
 inside a run of equal packed keys does not matter, because every range
@@ -14,18 +19,14 @@ query falls between distinct packed values) and stable `torch.argsort`
 passes, least significant key first, plus gathers (two keys). Everything is
 eager torch on the tensors' device: on CUDA it is PyTorch's own sort, scan
 and gather kernels, as the reference leaves these steps to XLA.
-
-Not ported: `join_groupby_local`, `join_groupby_sorted`,
-`join_groupby_sorted_packed` and their `make_join_groupby` strategies,
-which are XLA comparison code that no production path reaches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.ops.fused import prefix_sum
+from sqlrs_tpu_torch.ops.hash_table import build_join_table, next_pow2, probe_counts
 
 _BLK = 128                      # rows per block of the rank stage
 _INT64_MIN = -(2**63)
@@ -384,14 +385,101 @@ def join_groupby_firstapp(
     return (sums_all[0], counts, firsts, *sums_all[1:])
 
 
-def make_join_groupby(n_groups: int, strategy: str = "direct"):
-    """The headline star rollup as a function of (fact_keys, fact_vals,
-    dim_keys). Only strategy 'direct' (sort + prefix sum + range queries)
-    is ported; 'sorted', 'sorted_packed' and 'hash' raise."""
+def join_groupby_local(fact_keys, fact_vals, dim_keys, n_groups: int, capacity: int):
+    """SELECT dim_row, sum(v), count(*) FROM fact JOIN dim USING (key)
+    GROUP BY dim_row through the open-addressing table (unique dim keys):
+    build on the dim keys, probe every fact key, scatter-add by dim row."""
+    table, start, bcounts, order = build_join_table(dim_keys, capacity)
+    found, _ = probe_counts(table, fact_keys, bcounts, capacity)
+    matched = found >= 0
+    slot = torch.clamp(found, min=0)
+    dim_row = order[torch.clamp(start[slot], 0, order.shape[0] - 1)]
+    gid = torch.where(matched, dim_row, n_groups)
+    dev = fact_vals.device
+    sums = torch.zeros(n_groups + 1, dtype=fact_vals.dtype, device=dev).index_add_(
+        0, gid, torch.where(matched, fact_vals, 0)
+    )
+    counts = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev).index_add_(
+        0, gid, matched.to(torch.int64)
+    )
+    return sums[:n_groups], counts[:n_groups]
+
+
+def _runs_to_groups(ks, vs, dim_keys_sorted, dim_perm, n_groups: int, run_capacity: int):
+    """The shared tail of the sort-merge strategies: from fact keys `ks`
+    sorted with their values `vs`, each run's sum (prefix-sum differences
+    at the run ends) and count, keyed into the sorted dim keys, scattered
+    by dim row. Returns (sums, counts, n_runs); n_runs > run_capacity
+    means runs past the capacity went uncounted."""
+    n = ks.shape[0]
+    dev = ks.device
+    prev = torch.cat([ks[:1] - 1, ks[:-1]])
+    rid = torch.cumsum((ks != prev).to(torch.int32), 0, dtype=torch.int32) - 1
+    n_runs = rid[-1] + 1
+    csum = prefix_sum(vs)
+    r = torch.arange(run_capacity, dtype=torch.int32, device=dev)
+    ends = torch.searchsorted(rid, r, right=True, out_int32=True)
+    prev_end = torch.cat([torch.zeros(1, dtype=ends.dtype, device=dev), ends[:-1]])
+    valid_run = ends > prev_end
+    last = torch.clamp(ends - 1, 0, n - 1)
+    base = torch.where(prev_end > 0, csum[torch.clamp(prev_end - 1, 0, n - 1)], 0)
+    run_sum = csum[last] - base
+    run_cnt = (ends - prev_end).to(torch.int64)
+    run_key = ks[last].contiguous()
+    pos = torch.searchsorted(dim_keys_sorted.contiguous(), run_key, out_int32=True)
+    pos_c = torch.clamp(pos, 0, n_groups - 1)
+    hit = valid_run & (dim_keys_sorted[pos_c] == run_key)
+    out_row = torch.where(hit, dim_perm[pos_c], n_groups)
+    sums = torch.zeros(n_groups + 1, dtype=vs.dtype, device=dev).index_add_(
+        0, out_row, torch.where(hit, run_sum, 0)
+    )
+    counts = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev).index_add_(
+        0, out_row, torch.where(hit, run_cnt, 0)
+    )
+    return sums[:n_groups], counts[:n_groups], n_runs
+
+
+def join_groupby_sorted(
+    fact_keys, fact_vals, dim_keys_sorted, dim_perm, n_groups: int, run_capacity: int
+):
+    """Sort-merge join + group-by: sort (key, value), then per-run sums and
+    counts from prefix-sum differences at the run ends (run_capacity
+    queries, not N), each run's key found in the sorted dim keys. Returns
+    (sums, counts, n_runs); n_runs > run_capacity means undercounted
+    output (callers size run_capacity >= distinct fact keys)."""
+    ks, perm = torch.sort(fact_keys, stable=True)
+    return _runs_to_groups(ks, fact_vals[perm], dim_keys_sorted, dim_perm, n_groups,
+                           run_capacity)
+
+
+def join_groupby_sorted_packed(
+    fact_keys, fact_vals, dim_keys_sorted, dim_perm, n_groups: int,
+    run_capacity: int, val_bits: int,
+):
+    """join_groupby_sorted with (key << val_bits | value) packed into ONE
+    int64 sort operand (key < 2^(63 - val_bits), 0 <= value <
+    2^val_bits). Runs stay contiguous per key because the value occupies
+    the low bits."""
+    sp = torch.sort((fact_keys << val_bits) | fact_vals).values
+    return _runs_to_groups(sp >> val_bits, sp & ((1 << val_bits) - 1), dim_keys_sorted,
+                           dim_perm, n_groups, run_capacity)
+
+
+def make_join_groupby(n_groups: int, strategy: str = "direct", slack: int = 2):
+    """The star rollup as a function of (fact_keys, fact_vals, dim_keys):
+    strategy 'direct' (sort + prefix sum + range queries, the headline
+    path), 'sorted'/'sorted_packed' (run-boundary sort-merge, with
+    run_capacity slack x n_groups rounded to a power of two) or 'hash'
+    (open addressing)."""
+    if strategy == "hash":
+        capacity = next_pow2(max(2 * n_groups, 16))
+
+        def fn_hash(fact_keys, fact_vals, dim_keys):
+            return join_groupby_local(fact_keys, fact_vals, dim_keys, n_groups, capacity)
+
+        return fn_hash
     if strategy != "direct":
-        raise ExecutorError(
-            f"make_join_groupby strategy {strategy!r} not yet ported to sqlrs_tpu_torch"
-        )
+        return _make_sorted(n_groups, strategy, next_pow2(max(slack * n_groups, 16)))
 
     def fn_direct(
         fact_keys, fact_vals, dim_keys, val_bits: int = 7,
@@ -431,3 +519,28 @@ def make_join_groupby(n_groups: int, strategy: str = "direct"):
         )
 
     return fn_direct
+
+
+def _make_sorted(n_groups: int, strategy: str, run_capacity: int):
+    """make_join_groupby's sort-merge strategies: 'sorted_packed', and
+    'sorted' for any other name, as in the reference."""
+    if strategy == "sorted_packed":
+
+        def fn_packed(fact_keys, fact_vals, dim_keys, val_bits: int = 7):
+            order = torch.argsort(dim_keys)
+            sums, counts, _ = join_groupby_sorted_packed(
+                fact_keys, fact_vals, dim_keys[order], order, n_groups, run_capacity,
+                val_bits,
+            )
+            return sums, counts
+
+        return fn_packed
+
+    def fn(fact_keys, fact_vals, dim_keys):
+        order = torch.argsort(dim_keys)
+        sums, counts, _ = join_groupby_sorted(
+            fact_keys, fact_vals, dim_keys[order], order, n_groups, run_capacity
+        )
+        return sums, counts
+
+    return fn

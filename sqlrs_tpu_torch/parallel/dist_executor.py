@@ -21,6 +21,14 @@ strategies of parallel/dist_ops.py and parallel/dist_join.py.
   per-shard stages and collectives (scan/filter/project/simple & grouped
   agg/hash join/ORDER BY/LIMIT/DISTINCT); the rest (DISTINCT aggregates,
   cross join, DDL) materializes and delegates to the standard executor.
+- Several processes (parallel/mesh.initialize_distributed): every process
+  runs the same plan over its own shards, `ShardedBatch` holding only
+  those; the collect boundary gathers the whole result into every process
+  (the reference's `_host` over process_allgather), so every process's
+  `db.run` returns every row, and delegated operators run alike in every
+  process on the same collected rows. Every host read that steers control
+  flow reads a value that came out of a collective or out of collected
+  rows, so every process takes the same branches.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ class ShardedBatch:
 
     @property
     def local(self) -> int:
-        return int(self.alive[0].shape[0])
+        return int(self.alive[0].shape[0])  # every process holds >= 1 shard
 
     @property
     def capacity(self) -> int:
@@ -91,26 +99,26 @@ class ShardedBatch:
         return ShardedBatch(schema, columns, self.alive, self.mesh, list(self.parts), self.rowid)
 
     def to_device_batch(self) -> DeviceBatch:
-        """Collect: gather the shards onto the controller's device and
-        compact dead rows. Preserves single-device row order
-        (block-contiguous sharding + stable masking; rowid-sorted when an
-        exchange scrambled the layout)."""
+        """Collect: gather every shard's live rows onto the controller's
+        device (in every process of a multi-process mesh). Preserves
+        single-device row order (block-contiguous sharding + stable masking;
+        rowid-sorted when an exchange scrambled the layout)."""
         mesh = self.mesh
         dev = mesh.devices[0]
-        alive = collectives.gather(mesh, self.alive, dev)
-        idx = torch.nonzero(alive).reshape(-1)
-        if self.rowid is not None and len(idx):
-            rid = collectives.gather(mesh, self.rowid, dev)[idx]
-            idx = idx[torch.argsort(rid, stable=True)]
+        rows = collectives.LiveRows(mesh, self.alive, dev)
+        order = None
+        if self.rowid is not None and rows.n:
+            order = torch.argsort(rows.take(self.rowid), stable=True)
+
+        def take(xs):
+            t = rows.take(xs)
+            return t if order is None else t[order]
+
         cols = [
-            Column(
-                c[0].type,
-                collectives.gather(mesh, [x.data for x in c], dev)[idx],
-                collectives.gather(mesh, [x.valid for x in c], dev)[idx],
-            )
+            Column(c[0].type, take([x.data for x in c]), take([x.valid for x in c]))
             for c in self.columns
         ]
-        out = DeviceBatch(self.schema, cols, int(idx.shape[0]), dev)
+        out = DeviceBatch(self.schema, cols, rows.n, dev)
         if self.parts:
             out = DeviceBatch.concat([out] + self.parts)
         return out
@@ -154,7 +162,7 @@ class DistributedExecutor:
     def execute(self, op: P.PhysicalOperator):
         name = type(op).__name__.removeprefix("Physical")
         method = getattr(self, "_dexec_" + name, None)
-        if method is None:
+        if method is None or (self.mesh.group is not None and _interns_by_row([op])):
             return self._fallback(op)
         if self.profile is None:
             return method(op)
@@ -177,7 +185,7 @@ class DistributedExecutor:
 
     def _eval(self, exprs, sb: ShardedBatch) -> list:
         """Evaluate expressions on every shard's block: [expr][shard]."""
-        per = [execute_exprs_fused(exprs, sb.view(s)) for s in range(self.mesh.size)]
+        per = [execute_exprs_fused(exprs, sb.view(s)) for s in range(self.mesh.n_local)]
         return [[p[j] for p in per] for j in range(len(exprs))]
 
     # ---- scans ---------------------------------------------------------------
@@ -275,7 +283,7 @@ class DistributedExecutor:
         )
         alive = []
         for s, a in enumerate(child.alive):
-            base = counts[s].reshape(-1)[:s].sum()
+            base = counts[s].reshape(-1)[:self.mesh.offset + s].sum()
             pos = base + torch.cumsum(a.to(torch.int64), 0) - 1  # rank among live
             keep = a & (pos >= offset)
             if op.limit is not None:
@@ -329,16 +337,20 @@ class DistributedExecutor:
             if col[0].type == LogicalType.VARCHAR:
                 from sqlrs_tpu_torch.ops.sort import orderable_key
 
+                # each shard's best (key, code); the codes of one string
+                # dictionary, which every process builds alike
                 best = []
                 for o, c in zip(ok, col):
                     key, _ = orderable_key(c)
                     k = torch.where(o, key, _INT64_MAX if want_min else -_INT64_MAX)
                     i = torch.argmin(k) if want_min else torch.argmax(k)
-                    best.append(torch.stack([k[i], i]))
+                    best.append(torch.stack([k[i], c.data[i].to(torch.int64)]))
                 best = collectives.gather(mesh, [b.reshape(1, 2) for b in best], self.db.device)
                 vals = best[:, 0]
                 s = int(torch.argmin(vals) if want_min else torch.argmax(vals))
-                return view_scalar(col[s], int(best[s, 1]))
+                code = best[s, 1:].to(col[0].data.dtype)
+                valid = torch.ones_like(code, dtype=torch.bool)
+                return Column(col[0].type, code, valid).scalar_at(0)
             dt = col[0].data.dtype
             unsigned64 = col[0].type == LogicalType.UBIGINT
             if dt.is_floating_point:
@@ -408,12 +420,15 @@ class DistributedExecutor:
         # see through column-pruning Projection chains between agg and join by
         # composing expressions, level by level
         node = op.children[0]
-        proj_stack = []
+        proj_stack, proj_nodes = [], []
         while isinstance(node, P.PhysicalProjection):
             proj_stack.append(node.exprs)
+            proj_nodes.append(node)
             node = node.children[0]
         jop = node
         if not isinstance(jop, P.PhysicalHashJoin):
+            return None
+        if self.mesh.group is not None and _interns_by_row([op, jop, *proj_nodes]):
             return None
         if jop.join_type != "inner" or len(jop.on) not in (1, 2) or jop.filter is not None:
             return None
@@ -517,8 +532,7 @@ class DistributedExecutor:
                 return self._delegate(op, child)
             return self._grouped_agg_dist(op, child)
 
-        n_dev = self.mesh.size
-        rng = range(n_dev)
+        rng = range(self.mesh.n_local)
         if len(jop.on) == 2:
             # composite two-key equi join: fold into one combined int key
             # (fused_route._combine_keys over all shards)
@@ -774,7 +788,7 @@ class DistributedExecutor:
 
         mesh = self.mesh
         venc, pair_ok = [], []
-        for s in range(mesh.size):
+        for s in range(mesh.n_local):
             e, vv = orderable_key(c[s])
             venc.append(e)
             pair_ok.append(f_ok[s] & vv)
@@ -822,8 +836,7 @@ class DistributedExecutor:
         from sqlrs_tpu_torch.ops.sort import orderable_key
 
         mesh = self.mesh
-        n_dev = mesh.size
-        rng = range(n_dev)
+        rng = range(mesh.n_local)
         dev = self.db.device
         key_cols = self._eval(op.groups, child)
         arg_exprs = [a.arg for a in op.aggregates if a.arg is not None]
@@ -880,20 +893,20 @@ class DistributedExecutor:
                 break
             g_cap = min(g_cap * 4, next_pow2(cap_local))  # retry with a larger capacity
 
-        # ---- gather the partials to the controller, compact at G size -------
-        def gathered(get):
-            return collectives.gather(mesh, [get(o) for o in outs], dev)
+        # ---- gather the live partials to the controller (G size) -------------
+        rows = collectives.LiveRows(mesh, [o[2] for o in outs], dev)
 
-        live = gathered(lambda o: o[2])
-        idx = torch.nonzero(live).reshape(-1)
+        def gathered(get):
+            return rows.take([get(o) for o in outs])
+
         partial_keys = []
         for k, c in enumerate(key_cols):
-            kd = gathered(lambda o, k=k: o[0][k][0])[idx]
-            kv = gathered(lambda o, k=k: o[0][k][1])[idx]
+            kd = gathered(lambda o, k=k: o[0][k][0])
+            kv = gathered(lambda o, k=k: o[0][k][1])
             partial_keys.append(Column(c[0].type, _unsortable(kd, c[0].type), kv))
-        ones = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
+        ones = torch.ones(rows.n, dtype=torch.bool, device=dev)
         merge_specs = [
-            ("min", Column(LogicalType.BIGINT, gathered(lambda o: o[1])[idx], ones),
+            ("min", Column(LogicalType.BIGINT, gathered(lambda o: o[1]), ones),
              LogicalType.BIGINT)
         ]
         result_plan = []  # per original agg: how to read merged outputs
@@ -901,7 +914,7 @@ class DistributedExecutor:
             rt = a.return_type()
 
             def state(key, j=j):
-                return gathered(lambda o: o[3][j][key])[idx]
+                return gathered(lambda o: o[3][j][key])
 
             if kind in ("count_star", "count"):
                 result_plan.append(("count", len(merge_specs), rt))
@@ -1096,7 +1109,7 @@ class DistributedExecutor:
 
         mesh = self.mesh
         n_dev = mesh.size
-        rng = range(n_dev)
+        rng = range(mesh.n_local)
         lkey_cols = self._eval([lk for lk, _ in op.on], left)
         rkey_cols = self._eval([rk for _, rk in op.on], right)
         b_keys, p_keys = [], []
@@ -1245,8 +1258,7 @@ class DistributedExecutor:
         ]
         cols = [[] for _ in range(len(left.columns) + len(right.columns))]
         alive_out, visited, rowid_out = [], [], []
-        for s in range(mesh.size):
-            dev = mesh.devices[s]
+        for s, dev in enumerate(mesh.devices):
             rview = right.view(s)
             rk = [c[s] for c in right_keys]
             n_loc = right.local
@@ -1329,7 +1341,6 @@ def _combine_keys_sharded(mesh, f1, f2, d1, d2):
     keys. Returns (fact_ck, fact_ok, dim_ck, dim_ok) per shard, or None
     when the packing would overflow int64 (one host read of the meta)."""
     big = _INT64_MAX
-    n = mesh.size
     i64 = torch.int64
     dv = [a.valid & b.valid for a, b in zip(d1, d2)]
     stats = collectives.reduce_max(mesh, [
@@ -1343,7 +1354,7 @@ def _combine_keys_sharded(mesh, f1, f2, d1, d2):
     ])
     st = replicate(mesh, stats)
     f_ck, f_ok, d_ck = [], [], []
-    for s in range(n):
+    for s in range(mesh.n_local):
         mn_min, mn_max, mj_min = -st[s][0], st[s][1], -st[s][2]
         span = torch.clamp(mn_max - mn_min + 1, min=1)
         d_ck.append((d1[s].data.to(i64) - mj_min) * span + (d2[s].data.to(i64) - mn_min))
@@ -1369,6 +1380,37 @@ def _combine_keys_sharded(mesh, f1, f2, d1, d2):
     return f_ck, f_ok, d_ck, dv
 
 
+def _interns_by_row(ops) -> bool:
+    """Whether an operator's own expressions intern new strings in the
+    order of the rows they meet (`||`). Every process of a multi-process
+    mesh builds the same string dictionary from the same tables and the
+    same dictionary-wide code maps (substring, LIKE), but a string made
+    from row data would take a code in the order each process met it on
+    its own shards; under a process group such an operator runs on the
+    collected rows, the same in every process. One process interns in the
+    shards' row order and keeps the sharded path."""
+    from sqlrs_tpu_torch.binder.expression import BoundExpr, BoundFunction, visit_expr
+
+    found = []
+
+    def look(e):
+        if isinstance(e, BoundFunction) and e.op == "concat":
+            found.append(e)
+
+    def walk(v):
+        if isinstance(v, BoundExpr):
+            visit_expr(v, look)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+
+    for op in ops:
+        for name, v in vars(op).items():
+            if name != "children":
+                walk(v)
+    return bool(found)
+
+
 def _mm_key(enc):
     """int64 min/max sort key of an orderable key: floats through their
     sort order (ops/sort._float_order_key), ints as they are."""
@@ -1377,10 +1419,6 @@ def _mm_key(enc):
 
         return _float_order_key(enc.to(torch.float64))
     return enc.to(torch.int64)
-
-
-def view_scalar(col: Column, i: int) -> ScalarValue:
-    return col.scalar_at(i)
 
 
 def _int64_bits(c: Column):

@@ -71,8 +71,9 @@ def _ring_probe_ranks(mesh, p_sends, dest_ps, cap: int, l_ops, nk: int):
     mbufs = [p[1] for p in parts]
     n_recv = n_dev * cap
     perm = collectives.ring_perm(n_dev)
-    outs, msk, sts, cts, orders = [], [], [], [], [None] * n_dev
-    for s in range(n_dev):
+    rng = range(mesh.n_local)
+    outs, msk, sts, cts, orders = [], [], [], [], [None] * mesh.n_local
+    for s in rng:
         dev = mbufs[s].device
         outs.append([torch.zeros(n_recv, dtype=b.dtype, device=dev) for b in bufs[s]])
         msk.append(torch.zeros(n_recv, dtype=torch.bool, device=dev))
@@ -85,22 +86,23 @@ def _ring_probe_ranks(mesh, p_sends, dest_ps, cap: int, l_ops, nk: int):
             for k in range(len(bufs[0]))
         ]
         mbufs_n = collectives.ppermute(mesh, mbufs, perm)
-        for i in range(n_dev):
-            # the resident buffer belongs to shard (i - step); my chunk is row i
-            chunk = [b[i] for b in bufs[i]]
-            cm = mbufs[i][i]
+        for i in rng:
+            # the resident buffer belongs to shard (g - step); my chunk is row g
+            g = mesh.offset + i
+            chunk = [b[g] for b in bufs[i]]
+            cm = mbufs[i][g]
             r_ops = []
             for j in range(nk):
                 r_ops += [cm.to(torch.int32), chunk[j]]
             st_c, ct_c, order, _tot = _pairs_phase_a(l_ops[i], tuple(r_ops), 2 * nk)
-            off = ((i - step) % n_dev) * cap
+            off = ((g - step) % n_dev) * cap
             for o, c in zip(outs[i], chunk):
                 o[off:off + cap] = c
             msk[i][off:off + cap] = cm
             sts[i][off:off + cap] = st_c
             cts[i][off:off + cap] = ct_c
             orders[i] = order
-        bufs = [[bufs_n[k][s] for k in range(len(bufs_n))] for s in range(n_dev)]
+        bufs = [[bufs_n[k][s] for k in range(len(bufs_n))] for s in rng]
         mbufs = mbufs_n
     return outs, msk, sts, cts, orders, [p[2] for p in parts]
 
@@ -158,7 +160,7 @@ def shuffle_join_phase_a(
         hot_min = bucket_p
     n_dev = mesh.size
     nk = len(b_keys)
-    rng = range(n_dev)
+    rng = range(mesh.n_local)
 
     # ---- stage 1: hashes and the psum'd histogram of probe keys -------------
     loc = []
@@ -194,7 +196,9 @@ def shuffle_join_phase_a(
         # probe rows: hot rows salted round-robin
         n_local = pvalid.shape[0]
         base_p = umod(hp, n_dev)
-        salt = (torch.arange(n_local, dtype=torch.int64, device=hp.device) + s) % n_dev
+        salt = (
+            torch.arange(n_local, dtype=torch.int64, device=hp.device) + mesh.offset + s
+        ) % n_dev
         dest_p = torch.where(hot[bucket_p_id], salt, base_p)
         dest_ps.append(torch.where(pvalid, dest_p, n_dev))
         p_sends.append(
@@ -291,7 +295,7 @@ def shuffle_join_phase_b(mesh, a: ShuffleJoinPhaseA, n_keys: int, n_b_payload: i
     b_cells = [[] for _ in b_pay]
     p_cells = [[] for _ in p_pay]
     rowid_out, alive = [], []
-    for s in range(mesh.size):
+    for s in range(mesh.n_local):
         starts, counts, order = a.starts[s], a.counts[s], a.order[s]
         nb_local = order.shape[0]
         j = torch.arange(m, dtype=torch.int64, device=starts.device)
@@ -378,6 +382,7 @@ def _combine(mesh, cnt, rid, sums, mms):
     own chunk: psum of counts and sums, pmin of the first rowid, and per
     min/max the raw value of the first shard holding the global min key."""
     n_dev = mesh.size
+    shards = mesh.local_shards  # (global index, device) of each local shard
     cnt_g = collectives.psum_scatter(mesh, cnt)
     rid_g = collectives.psum_scatter(mesh, rid, "min")
     sums_g = [collectives.psum_scatter(mesh, [x[k] for x in sums])
@@ -387,16 +392,16 @@ def _combine(mesh, cnt, rid, sums, mms):
         kk = [x[k][0] for x in mms]
         ra = [x[k][1] for x in mms]
         gmin = collectives.pmin(mesh, kk)
-        mine = [kk[s] == gmin[s] for s in range(n_dev)]
+        mine = [k == m for k, m in zip(kk, gmin)]
         shard_sel = collectives.pmin(
-            mesh, [torch.where(mine[s], s, n_dev) for s in range(n_dev)]
+            mesh, [torch.where(mine[s], g, n_dev) for s, (g, _d) in enumerate(shards)]
         )
         raw_g = collectives.psum_scatter(mesh, [
-            torch.where(mine[s] & (shard_sel[s] == s), ra[s], torch.zeros_like(ra[s]))
-            for s in range(n_dev)
+            torch.where(mine[s] & (shard_sel[s] == g), ra[s], torch.zeros_like(ra[s]))
+            for s, (g, _d) in enumerate(shards)
         ])
         chunk = gmin[0].shape[0] // n_dev
-        own_min = [gmin[s][s * chunk:(s + 1) * chunk] for s in range(n_dev)]
+        own_min = [gmin[s][g * chunk:(g + 1) * chunk] for s, (g, _d) in enumerate(shards)]
         mm_g.append((raw_g, own_min))
     return cnt_g, sums_g, rid_g, mm_g
 
@@ -425,8 +430,9 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
     chunk = d_enc[0].shape[0]
     d_cap = chunk * n_dev
     perm = collectives.ring_perm(n_dev)
+    rng = range(mesh.n_local)
     tables, accs = [], []
-    for s in range(n_dev):
+    for s in rng:
         dev = f_enc[s].device
         scols = [c[s] for c in sum_cols]
         mmflat = [a[s] for pair in mm_specs for a in pair]
@@ -440,15 +446,15 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
              for j in range(n_mm)],
         ))
     d_pos = [
-        s * chunk + torch.arange(chunk, dtype=torch.int64, device=d_enc[s].device)
-        for s in range(n_dev)
+        g * chunk + torch.arange(chunk, dtype=torch.int64, device=dev)
+        for g, dev in mesh.local_shards
     ]
     held = (list(d_enc), d_pos, list(d_ok))
     for _step in range(n_dev):
         # the next chunk's transfer first: it does not depend on the range
         # queries below (the reference lets XLA overlap the two)
         nxt = tuple(collectives.ppermute(mesh, a, perm) for a in held)
-        for s in range(n_dev):
+        for s in rng:
             d_enc_c, d_pos_c, d_ok_c = held[0][s], held[1][s], held[2][s]
             k2d, rid_s, sum_tables, mm_sorted = tables[s]
             cnt, rid, sums, mms = _range_answers(
@@ -484,11 +490,10 @@ def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_
     instead of n_dev ppermute steps — the right trade when the dim side
     fits in every shard. Same argument and return contract as
     ring_agg_join."""
-    n_dev = mesh.size
     d_enc_g = collectives.all_gather(mesh, list(d_enc), tiled=True)
     d_ok_g = collectives.all_gather(mesh, list(d_ok), tiled=True)
     cnts, rids, sums, mms = [], [], [], []
-    for s in range(n_dev):
+    for s in range(mesh.n_local):
         scols = [c[s] for c in sum_cols]
         mmflat = [a[s] for pair in mm_specs for a in pair]
         k2d, rid_s, sum_tables, mm_sorted = _fact_tables(

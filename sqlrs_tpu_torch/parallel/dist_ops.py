@@ -2,10 +2,14 @@
 
 The port of sqlrs_tpu/parallel/dist_ops.py. Each `shard_map(local, ...)`
 program of the reference is a function here that runs its per-shard
-stages in a loop over the shards and calls parallel/collectives.py between
-them, so a `local` body is split at each collective. A sharded array is a
-list of per-shard tensors, element i on `mesh.devices[i]`; a replicated
-result is one tensor (shard 0's copy).
+stages in a loop over this process's shards and calls
+parallel/collectives.py between them, so a `local` body is split at each
+collective. A sharded array is a list of this process's per-shard tensors,
+element j on `mesh.devices[j]` (global shard `mesh.offset + j`); a
+replicated result is one tensor (the first shard's copy), the same in every
+process. The join + group-by entry points take the whole (unsharded)
+arrays, as every process of a multi-process mesh holds them, and place
+only this process's shards.
 
 - partition_shuffle: repartition rows by key hash through `all_to_all`
   with a fixed per-destination bucket capacity (padding carries a
@@ -165,11 +169,11 @@ def _exchange_rows(mesh, arrays, dests, bucket_capacity: int):
         _bucketize_rows(a, d, n_dev, bucket_capacity) for a, d in zip(arrays, dests)
     ]
     n_arr = len(arrays[0])
-    received = [[] for _ in range(n_dev)]
+    received = [[] for _ in parts]
     for k in range(n_arr):
         recv = collectives.all_to_all(mesh, [p[0][k] for p in parts])
-        for s in range(n_dev):
-            received[s].append(recv[s].reshape(-1))
+        for s, r in enumerate(recv):
+            received[s].append(r.reshape(-1))
     masks = collectives.all_to_all(mesh, [p[1] for p in parts])
     return (
         [tuple(r) for r in received],
@@ -228,7 +232,7 @@ def dist_join_groupby_broadcast(mesh, fact_keys, fact_vals, dim_keys, n_groups: 
     fm = live_blocks(mesh, int(fact_keys.shape[0]))
     dks = replicate(mesh, dim_keys)
     sums, cnts = [], []
-    for s in range(mesh.size):
+    for s in range(mesh.n_local):
         dk = dks[s]
         drow = torch.arange(dk.shape[0], dtype=torch.int64, device=dk.device)
         dm = torch.ones(dk.shape[0], dtype=torch.bool, device=dk.device)
@@ -252,7 +256,7 @@ def dist_join_groupby_shuffle(
     fk, fv, fm, ovf_f = partition_shuffle(mesh, fk, fv, fm, bucket_capacity)
     dk, drow, dm, ovf_d = partition_shuffle(mesh, dk, drow, dm, bucket_capacity)
     sums, cnts = [], []
-    for s in range(mesh.size):
+    for s in range(mesh.n_local):
         sm, ct = _local_join_groupby(fk[s], fv[s], fm[s], dk[s], drow[s], dm[s], n_groups)
         sums.append(sm)
         cnts.append(ct)
@@ -305,7 +309,7 @@ def dist_join_groupby_salted(
     n_dev = mesh.size
     n_buckets = 4096
     fk, fv, fm, dk, drow, dm = _placed_fact_dim(mesh, fact_keys, fact_vals, dim_keys)
-    rng = range(n_dev)
+    rng = range(mesh.n_local)
 
     # ---- stage 1: per-shard key histograms, psum'd ----------------------------
     bucket_f = [hash_keys(fk[s], n_buckets) for s in rng]
@@ -411,21 +415,16 @@ def dist_join_groupby_ring(mesh, fact_keys, fact_vals, dim_keys, n_groups: int):
     perm = collectives.ring_perm(n_dev)
     # the fact side is sorted ONCE; each ring step answers the resident dim
     # chunk's range queries against the same sorted blocks
-    tables = [_sorted_fact_blocks(fk[s], fv[s], fm[s]) for s in range(n_dev)]
-    sums = [
-        torch.zeros(n_groups + 1, dtype=fv[s].dtype, device=fv[s].device)
-        for s in range(n_dev)
-    ]
-    cnts = [
-        torch.zeros(n_groups + 1, dtype=torch.int64, device=fv[s].device)
-        for s in range(n_dev)
-    ]
+    rng = range(mesh.n_local)
+    tables = [_sorted_fact_blocks(fk[s], fv[s], fm[s]) for s in rng]
+    sums = [torch.zeros(n_groups + 1, dtype=fv[s].dtype, device=fv[s].device) for s in rng]
+    cnts = [torch.zeros(n_groups + 1, dtype=torch.int64, device=fv[s].device) for s in rng]
     chunk = (dk, drow, dm)
     for _step in range(n_dev):
         # the next chunk's transfer first: it does not depend on the range
         # queries below (the reference lets XLA overlap the two)
         nxt = tuple(collectives.ppermute(mesh, a, perm) for a in chunk)
-        for s in range(n_dev):
+        for s in rng:
             dk_c, drow_c, dm_c = chunk[0][s], chunk[1][s], chunk[2][s]
             sum_d, cnt_d = _range_partials(*tables[s], dk_c, dm_c)
             tgt = torch.where(dm_c, drow_c, n_groups)
@@ -467,13 +466,16 @@ def dist_sort_rows(
         big = float("inf")
 
     sends, dests, samples = [], [], []
-    for s in range(n_dev):
+    rng = range(mesh.n_local)
+    for s in rng:
         alive_l = alive[s]
         n_local = alive_l.shape[0]
         dev = alive_l.device
         keys_l = [k[s] for k in dkeys]
         if rowid is None:
-            rowid_l = s * n_local + torch.arange(n_local, dtype=torch.int64, device=dev)
+            rowid_l = (mesh.offset + s) * n_local + torch.arange(
+                n_local, dtype=torch.int64, device=dev
+            )
         else:
             rowid_l = rowid[s]
         first_l = torch.where(alive_l, keys_l[0], big)
@@ -482,7 +484,7 @@ def dist_sort_rows(
         samples.append(sorted_first[::stride][:sample_per_shard])
         sends.append(tuple(keys_l) + (rowid_l,) + tuple(p[s] for p in payload_arrays))
     gathered = collectives.all_gather(mesh, samples)
-    for s in range(n_dev):
+    for s in rng:
         sample = torch.sort(gathered[s].reshape(-1)).values
         m = sample.shape[0]
         idx = torch.arange(1, n_dev, dtype=torch.int64, device=sample.device) * m // n_dev
@@ -494,7 +496,7 @@ def dist_sort_rows(
     keys_out = [[] for _ in range(nk)]
     pays_out = [[] for _ in payload_arrays]
     mask_out = []
-    for s in range(n_dev):
+    for s in rng:
         recv, mask = received[s], masks[s]
         keys_r = recv[:nk]
         rowid_r = recv[nk]

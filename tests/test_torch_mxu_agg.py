@@ -202,3 +202,24 @@ def test_dense_group_sums_rejects_bad_inputs(change):
         key_min = 1 << 63
     with pytest.raises(ValueError):
         port.dense_group_sums(keys, vals, g, key_min=key_min, valid=valid)
+
+
+@pytest.mark.parametrize("bits,hi", [(7, 100), (23, 1 << 23)])
+def test_dense_xla_formulation_matches_reference(bits, hi):
+    """mxu_groupby_dense_xla (the one-hot products outside the kernel)
+    against the reference's and numpy, exactly (tests/test_kernels.py:
+    237-255): misses on both sides, 1- and 3-limb values, a row count that
+    is no multiple of the block."""
+    rng = np.random.default_rng(7)
+    n, g = 70_000, 700
+    keys = rng.integers(0, g, n).astype(np.int64)
+    keys[::11] = -3
+    keys[::17] = g + 9
+    vals = rng.integers(0, hi, n).astype(np.int64)
+    rs, rc = ref.mxu_groupby_dense_xla(jnp.asarray(keys), jnp.asarray(vals), g, bits)
+    ps, pc = port.mxu_groupby_dense_xla(torch.from_numpy(keys), torch.from_numpy(vals), g, bits)
+    assert ps.dtype == pc.dtype == torch.int64
+    assert np.array_equal(ps.numpy(), np.asarray(rs))
+    assert np.array_equal(pc.numpy(), np.asarray(rc))
+    exp_s, exp_c = _numpy_dense(keys, vals, g)
+    assert np.array_equal(ps.numpy(), exp_s) and np.array_equal(pc.numpy(), exp_c)

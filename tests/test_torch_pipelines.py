@@ -286,5 +286,49 @@ def test_make_join_groupby_direct_with_catalog_metadata(monkeypatch):
     r = fn_r(_j(fk2), _j(fv), _j(sparse), fk_complete=True)
     p = fn_p(_t(fk2), _t(fv), _t(sparse), fk_complete=True)
     _same_outputs(r, p)
-    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-        port.make_join_groupby(g, strategy="sorted")
+    # the comparison strategies on the same inputs: each equals the
+    # reference's strategy and numpy (tests/test_kernels.py's packed case)
+    for strategy, kw in (("hash", {}), ("sorted", {}), ("sorted_packed", {"val_bits": 8})):
+        r = ref.make_join_groupby(g, strategy=strategy)(_j(fk), _j(fv), _j(dk), **kw)
+        p = port.make_join_groupby(g, strategy=strategy)(_t(fk), _t(fv), _t(dk), **kw)
+        _same_outputs(r, p)
+        assert np.array_equal(p[0].numpy(), exp_s[shuffled]), strategy
+        assert np.array_equal(p[1].numpy(), exp_c[shuffled]), strategy
+
+
+@pytest.mark.parametrize("strategy", ["hash", "sorted", "sorted_packed"])
+@pytest.mark.parametrize("kind", ["sparse", "negative"])
+def test_make_join_groupby_comparison_strategies(strategy, kind):
+    """'hash', 'sorted' and 'sorted_packed' against the reference's, exactly
+    (tests/test_kernels.py:124-130): misses inside and outside the dim span,
+    a shuffled dim table, a prime row count."""
+    n, g = 6_007, 300
+    _rng, fk, fv, dk = _star(41, n, g, kind)
+    if kind == "negative" and strategy == "sorted_packed":
+        shift = -int(fk.min())               # the packed sort needs keys >= 0
+        fk, dk = fk + shift, dk + shift
+    kw = {"val_bits": 8} if strategy == "sorted_packed" else {}
+    r = ref.make_join_groupby(g, strategy=strategy)(_j(fk), _j(fv), _j(dk), **kw)
+    p = port.make_join_groupby(g, strategy=strategy)(_t(fk), _t(fv), _t(dk), **kw)
+    _same_outputs(r, p)
+    pos = {int(k): i for i, k in enumerate(dk)}
+    exp_s, exp_c = np.zeros(g, np.int64), np.zeros(g, np.int64)
+    for k, v in zip(fk.tolist(), fv.tolist()):
+        if k in pos:
+            exp_s[pos[k]] += v
+            exp_c[pos[k]] += 1
+    assert np.array_equal(p[0].numpy(), exp_s) and np.array_equal(p[1].numpy(), exp_c)
+
+
+@pytest.mark.parametrize("run_capacity", [16, 64, 1024])
+def test_join_groupby_sorted_run_overflow(run_capacity):
+    """n_runs past run_capacity: the same undercounted sums and counts and
+    the same int32 n_runs as the reference, plain and packed."""
+    n, g = 4_001, 200
+    _rng, fk, fv, dim_rows = _star(43, n, g, "dense")
+    dim_sorted, order = _sorted_dim(dim_rows)
+    args_r = (_j(fk), _j(fv), _j(dim_sorted), _j(order), g, run_capacity)
+    args_p = (_t(fk), _t(fv), _t(dim_sorted), _t(order), g, run_capacity)
+    _same_outputs(ref.join_groupby_sorted(*args_r), port.join_groupby_sorted(*args_p))
+    _same_outputs(ref.join_groupby_sorted_packed(*args_r, 8),
+                  port.join_groupby_sorted_packed(*args_p, 8))

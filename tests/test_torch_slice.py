@@ -262,16 +262,45 @@ def test_unported_operators_raise(sql_dbs, sql, what):
 
 
 @pytest.mark.parametrize("kwargs", [{"n_devices": 2}], ids=["n_devices"])
-def test_unported_database_options_raise(kwargs):
-    """n_devices is ported (the sharded engine, here 2 shards on the CPU),
-    but its multi-process layer is not. (profile=True is ported: see
-    tests/test_torch_profiling.py.)"""
+def test_unported_database_options_raise(kwargs, tmp_path, monkeypatch):
+    """The database options that once raised "not yet ported" work:
+    n_devices (the sharded engine, here 2 shards on the CPU) and its
+    multi-process layer. Without a process group make_multihost_mesh is the
+    (1, n) view and initialize_distributed asks for its coordinator; inside
+    a one-process gloo group the mesh's collectives go through
+    torch.distributed and a query gives the single-controller rows.
+    (profile=True is ported: see tests/test_torch_profiling.py.)"""
+    import torch.distributed as dist
+
     from sqlrs_tpu_torch.parallel import mesh
 
-    assert sqlrs_tpu_torch.Database(device="cpu", **kwargs).mesh.size == 2
-    for fn in (mesh.initialize_distributed, mesh.make_multihost_mesh):
-        with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="not yet ported"):
-            fn()
+    single = sqlrs_tpu_torch.Database(device="cpu", **kwargs)
+    assert single.mesh.size == 2 and single.mesh.group is None
+    mh = mesh.make_multihost_mesh(devices=["cpu"] * 2)
+    assert mh.shape == {"host": 1, "device": 2} and mh.size == 2
+    for var in ("SQLRS_TPU_COORDINATOR", "SQLRS_TPU_NUM_PROCESSES", "SQLRS_TPU_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="coordinator address"):
+        mesh.initialize_distributed()
+
+    sql = "select k % 3, sum(v), count(*) from t group by k % 3 order by 1"
+    tables = {"t": [("k", "BIGINT", np.arange(100), None),
+                    ("v", "DOUBLE", np.linspace(0.1, 9.9, 100), None)]}
+    import_tables(single, tables)
+    mesh.initialize_distributed(f"file://{tmp_path}/rdv", 1, 0, backend="gloo")
+    try:
+        mesh.initialize_distributed()  # a no-op
+        one = mesh.make_mesh(devices=["cpu"] * 2)
+        assert (one.size, one.n_proc, one.offset) == (2, 1, 0) and one.group is not None
+        grouped = sqlrs_tpu_torch.Database(mesh=one)
+        import_tables(grouped, tables)
+        assert grouped.run_lines(sql) == single.run_lines(sql)
+        with pytest.raises(sqlrs_tpu_torch.ExecutorError, match="3 shards asked"):
+            mesh.make_mesh(3, devices=["cpu"] * 2)
+    finally:
+        dist.destroy_process_group()
+    assert mesh.make_mesh(devices=["cpu"] * 2).group is None
 
 
 CSV_TEXT = (
