@@ -2,7 +2,8 @@
 TPC-H Q1/Q6 at scale factor 1, the star rollup at bench.py's size, and all
 22 TPC-H queries at scale factor 1, all through
 `Database(device="cuda").run`, then the sharded engine over 4 shards on
-the same card, in one process and over torch.distributed.
+the same card, in one process and over torch.distributed, and last the
+SQL fuzz corpus on the card against the port's CPU run.
 
     python3 chip_smoke.py
 
@@ -53,9 +54,14 @@ Phases, each printing one line or a few:
   6. tpch22      — all 8 TPC-H tables at SF1 from the port's copy of the
                    generator (sqlrs_tpu_torch/benchmarks/tpch_dbgen.py, seed
                    printed), the columns the 22 queries read loaded into
-                   Database(device="cuda"); each query one cold and three
-                   warm runs, its rows, routes, kernel launches and peak
-                   device memory. Every query's rows must equal the port's
+                   Database(device="cuda"); the load must have interned
+                   through the native string interner (data/strings.py's
+                   own build of native/interner.cpp), and the line
+                   `intern: native` gives the load's seconds and its
+                   interning's beside the Python path's on the same string
+                   columns (a fresh unbound StringDictionary()); each query
+                   one cold and three warm runs, its rows, routes, kernel
+                   launches and peak device memory. Every query's rows must equal the port's
                    own CPU run on the same tables (benchmarks/tpch.py's
                    rule: floats rel 1e-9 or abs 1e-6), with equal routes;
                    Q3, Q4 and Q18 must match numpy oracles; Q1 must log
@@ -120,6 +126,24 @@ Phases, each printing one line or a few:
                    rule; printed beside phase 8's ms: warm ms, bytes across
                    processes, host staging ms, peak memory a process, join
                    strategies, kernel launches.
+
+ 11. fuzz        — (run between phases 5 and 6, while the string
+                   dictionary is small: a new LIKE pattern evaluates over
+                   the whole dictionary, about a second a pattern once phase
+                   6 has interned TPC-H's strings) the engine-vs-engine fuzz
+                   corpus
+                   (sqlrs_tpu_torch/benchmarks/sql_fuzz.py): the cases
+                   the fast tests hold to the JAX package on the CPU (40 small, 4
+                   medium, one large at 2^17 fact rows) and 4 large seeds at
+                   2^18, each loaded into the port on the CPU, on the card
+                   and over 4 shards on the card. Every statement runs once
+                   on the CPU and twice on each card engine: the card's rows
+                   must equal the CPU run's (floats rel 1e-9) and each repeat
+                   must equal its first run bit for bit. Prints statements,
+                   differences (with seed and SQL), kernel 1's and kernel
+                   2's launches (both > 0 required), routes, join strategies
+                   (shuffle required), the seconds by engine and the
+                   phase's seconds.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -607,17 +631,20 @@ def device_ms(fn, match: str, calls: int = 20, flush=None, at_least: float = 0.0
     """Device milliseconds per call of fn(), which launches one kernel whose
     name holds `match`: the mean duration of torch.profiler's records of
     that kernel over `calls` calls, after two warm-up calls. The profiler
-    may drop a record or two of a window (seen on the H100); a trace with
-    fewer than half the calls' records, or with a mean under `at_least` ms
-    (a time the kernel cannot take, such as half its time by CUDA events),
-    is taken again, at most three times, and then raises; more records than
-    calls raise. With `flush`, flush() runs before each call."""
+    may drop records of a window (seen on the H100, up to 12 of 20 three
+    windows in a row); a trace with fewer than half the calls' records, or
+    with a mean under `at_least` ms (a time the kernel cannot take, such as
+    half its time by CUDA events), is taken again, at most six times; then
+    the records of all the windows are pooled, and fewer than `calls` of
+    them, or a mean under `at_least`, raise. More records than calls in a
+    window raise. With `flush`, flush() runs before each call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    pooled_us, pooled_n = 0.0, 0
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 if flush is not None:
@@ -633,8 +660,12 @@ def device_ms(fn, match: str, calls: int = 20, flush=None, at_least: float = 0.0
             raise AssertionError(f"{n} launches of {match} in {calls} calls")
         if us > 0 and 2 * n >= calls and us / 1e3 / n >= at_least:
             return us / 1e3 / n
-    raise AssertionError(f"torch.profiler traced {n} records of {match} for {calls} calls, "
-                         f"{us / 1e3:.4f} ms in all (at least {at_least:.4f} ms a call)")
+        pooled_us, pooled_n = pooled_us + us, pooled_n + n
+    if pooled_n >= calls and pooled_us / 1e3 / pooled_n >= at_least:
+        return pooled_us / 1e3 / pooled_n
+    raise AssertionError(f"torch.profiler traced {pooled_n} records of {match} for "
+                         f"{6 * calls} calls, {pooled_us / 1e3:.4f} ms in all (at least "
+                         f"{at_least:.4f} ms a call)")
 
 
 def l2_flusher(dev):
@@ -1366,6 +1397,61 @@ def oracle_tpch_q18(t):
              float(price[i]), int(bq[i])) for i in top]
 
 
+class timed_interning:
+    """Sums the seconds the global dictionary's intern_many takes while the
+    block runs: `with timed_interning() as secs:` ... `secs[0]`."""
+
+    def __enter__(self):
+        from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
+
+        self.secs = [0.0]
+        inner = GLOBAL_STRINGS.intern_many
+
+        def intern_many(strings):
+            t0 = time.perf_counter()
+            try:
+                return inner(strings)
+            finally:
+                self.secs[0] += time.perf_counter() - t0
+
+        GLOBAL_STRINGS.intern_many = intern_many
+        return self.secs
+
+    def __exit__(self, *exc):
+        from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
+
+        del GLOBAL_STRINGS.intern_many  # the class's method again
+        return False
+
+
+def intern_report(tables: dict, load_s: float, intern_s: float, card: str) -> None:
+    """Phase 6's string interning: the load went through the native interner
+    (the global dictionary must have bound it), timed against the Python
+    path on the same string columns, through a fresh unbound
+    StringDictionary() in this process."""
+    from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, StringDictionary
+
+    if not GLOBAL_STRINGS.native_bound:
+        raise AssertionError("phase tpch22: the native string interner did not bind "
+                             "(GLOBAL_STRINGS is on the Python path)")
+    cols = [a for t in tables.values() for a in t.values() if a.dtype.kind == "U"]
+    cells = sum(len(a) for a in cols)
+    py = StringDictionary()
+    t0 = time.perf_counter()
+    py_codes = [py.intern_many(a) for a in cols]
+    py_s = time.perf_counter() - t0
+    # the same strings, whichever path interned them
+    for a, codes in zip(cols[:3], py_codes[:3]):
+        back = [py.lookup(int(c)) for c in codes[:1000]]
+        if back != a[:1000].tolist():
+            raise AssertionError("the Python-path dictionary decodes other strings")
+    lib = os.path.basename(GLOBAL_STRINGS._native._name)
+    print(f"  intern: native ({lib}); the SF1 tables loaded in {load_s:.2f} s, of it "
+          f"{intern_s:.2f} s interning {cells} string cells of {len(cols)} columns "
+          f"({len(py)} distinct); the same columns through the Python path (a fresh "
+          f"StringDictionary()): {py_s:.2f} s [{card}]", flush=True)
+
+
 def phase_tpch22(dev, card: str) -> dict:
     """All 22 TPC-H queries at SF1 through Database(device="cuda").run: one
     cold and three warm runs each, timed to a synchronised device, then the
@@ -1392,8 +1478,10 @@ def phase_tpch22(dev, card: str) -> dict:
             cols.pop(cn, None)
     t0 = time.perf_counter()
     db = sqlrs_tpu_torch.Database(device=dev)
-    tpch_dbgen.load_into(db, tables)
+    with timed_interning() as intern_s:
+        tpch_dbgen.load_into(db, tables)
     load_s = time.perf_counter() - t0
+    intern_report(tables, load_s, intern_s[0], card)
     # the tables' device copies are made at their first scan: make them
     # now, so that a cold run finds its tables on the card
     t0 = time.perf_counter()
@@ -2473,6 +2561,104 @@ def phase_multiprocess(dev, card: str, tmpdir: str, tables_path: str, single: di
     return launches
 
 
+# ---- phase 11: the engine-vs-engine fuzz corpus on the card ----------------
+
+FUZZ_LARGE_SEEDS = range(4)  # 2^18 fact rows each, besides the fast tests' corpus
+
+
+def phase_fuzz(dev, card: str) -> dict:
+    """The fuzz corpus (sqlrs_tpu_torch/benchmarks/sql_fuzz.py): the fast
+    tests' cases (which they hold to the JAX package on the CPU) and 2^18-row
+    large seeds, each loaded into the port on the CPU, on the card and over
+    4 shards on the card. Every statement runs once on the CPU and twice
+    on each card engine: each card result must equal the CPU run's by
+    sql_fuzz.difference (floats rel 1e-9), and each repeat its first run
+    bit for bit. SQLRS_TPU_MXU=interpret makes the CPU run take the kernels'
+    routes with their plain versions, as the fast tests do; on the card the
+    routes launch the kernels. Returns each kernel's launches in the phase
+    (the card runs only)."""
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import sql_fuzz
+    from sqlrs_tpu_torch.parallel.mesh import make_mesh
+    from sqlrs_tpu_torch.storage.memory import import_tables
+    from sqlrs_tpu_torch.utils.render import batch_to_rows
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS)
+    cases = list(sql_fuzz.fast_tier_cases()) + [
+        sql_fuzz.gen_case(seed, "large") for seed in FUZZ_LARGE_SEEDS
+    ]
+    saved = os.environ.get("SQLRS_TPU_MXU")
+    os.environ["SQLRS_TPU_MXU"] = "interpret"
+    _zero_kernel_counts()
+    n_run = n_raise = 0
+    engine_s = dict.fromkeys(("load", "cpu", "cuda", "shards"), 0.0)
+    diffs, routes, strategies = [], set(), set()
+    per_size = {}
+    try:
+        for case in cases:
+            t0 = time.perf_counter()
+            cpu = sqlrs_tpu_torch.Database(device="cpu")
+            gpu = sqlrs_tpu_torch.Database(device=dev)
+            sharded = sqlrs_tpu_torch.Database(mesh=mesh)
+            for db in (cpu, gpu, sharded):
+                import_tables(db, case.tables)
+            engine_s["load"] += time.perf_counter() - t0
+
+            def run(key, db, sql):
+                t1 = time.perf_counter()
+                out = sql_fuzz.outcome(db, sql, batch_to_rows)
+                engine_s[key] += time.perf_counter() - t1
+                return out
+
+            for sql in case.statements:
+                gpu.last_fused_routes = []
+                c = run("cpu", cpu, sql)
+                g1, g2 = run("cuda", gpu, sql), run("cuda", gpu, sql)
+                s1, s2 = run("shards", sharded, sql), run("shards", sharded, sql)
+                routes.update(gpu.last_fused_routes or [])
+                strategies.update(sharded.last_join_strategies or [])
+                n_run += 1
+                n_raise += c[0] == "error"
+                for what, a, b, rel in (("cuda", c, g1, 1e-9), ("cuda repeat", g1, g2, 0.0),
+                                        ("4 shards", c, s1, 1e-9),
+                                        ("4 shards repeat", s1, s2, 0.0)):
+                    d = sql_fuzz.difference(a, b, rel)
+                    if d is not None:
+                        diffs.append((case.seed, case.size, what, sql, d))
+            del cpu, gpu, sharded
+            n, s = per_size.get(case.size, (0, 0.0))
+            per_size[case.size] = (n + len(case.statements), s + time.perf_counter() - t0)
+    finally:
+        if saved is None:
+            os.environ.pop("SQLRS_TPU_MXU")
+        else:
+            os.environ["SQLRS_TPU_MXU"] = saved
+    torch.cuda.empty_cache()
+    launches = _kernel_counts()
+    secs = time.perf_counter() - t_phase
+    sizes = ", ".join(f"{k} {n} statements in {t:.1f} s" for k, (n, t) in per_size.items())
+    print(f"phase fuzz: {len(cases)} cases (the fast tests' {len(cases) - len(FUZZ_LARGE_SEEDS)} and "
+          f"{len(FUZZ_LARGE_SEEDS)} large at 2^18 fact rows); {n_run} statements, each once "
+          f"on the cpu and twice on cuda and over {DIST_SHARDS} shards on the card ({sizes}); "
+          f"{n_raise} refused by every engine alike; differences {len(diffs)}; "
+          f"grouped_histogram {launches['grouped_histogram']}, dense_group_sums "
+          f"{launches['dense_group_sums']} launches; seconds by engine "
+          f"{ {k: round(v, 1) for k, v in engine_s.items()} }; routes {sorted(routes)}; "
+          f"strategies {sorted(strategies)}; {secs:.1f} s [{card}]", flush=True)
+    for seed, size, what, sql, d in diffs[:20]:
+        print(f"  DIFFERENCE seed {seed} {size} ({what}): {sql}\n    {d[:600]}", flush=True)
+    if diffs:
+        raise AssertionError(f"phase fuzz: {len(diffs)} differences")
+    if launches["grouped_histogram"] == 0:
+        raise AssertionError("phase fuzz: grouped_histogram was never launched")
+    if launches["dense_group_sums"] == 0:
+        raise AssertionError("phase fuzz: dense_group_sums was never launched")
+    if "shuffle" not in strategies:
+        raise AssertionError(f"phase fuzz: no shuffle join among {sorted(strategies)}")
+    return launches
+
+
 def write_tables(tables: dict, tmpdir: str) -> str:
     """Pickle the tables (numpy columns) once for phase 10's children."""
     import pickle
@@ -2526,6 +2712,10 @@ def main() -> int:
     phase_profile(card, "dense ORDER BY rollup",
                   lambda: star_db.run(STAR_SQL["dense_order"][0]))
     del star_db, tpch_db
+    # phase 11 runs here, while the string dictionary is small: every new
+    # LIKE pattern evaluates over the whole dictionary, about a second per
+    # pattern once phase 6 has interned TPC-H's 2.3M strings
+    launches_fuzz = phase_fuzz(dev, card)
     launches22, db22, slowest, tables22, results22, cpu_ops22 = phase_tpch22(dev, card)
     phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
                   lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
@@ -2562,7 +2752,7 @@ def main() -> int:
     del star
     launches_mp = phase_multiprocess(dev, card, tmp.name, tables_path, results22, results_dist)
     tmp.cleanup()
-    for extra in (launches22, launches_dist, launches_b, launches_mp):
+    for extra in (launches22, launches_dist, launches_b, launches_mp, launches_fuzz):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
             launches[name] += extra[name]

@@ -91,29 +91,105 @@ class _MatchTable:
         return self.table[:n]
 
 
+def _load_intern_lib():
+    """ctypes handle to this package's build of native/interner.cpp (built
+    into build/native/ at first use, utils/native_build.py); None when no
+    compiler is available or SQLRS_TPU_NATIVE_INTERN=0.
+
+    The interner's map sits in an anonymous namespace, and ctypes loads a
+    library with RTLD_LOCAL, so this build has a map of its own: the JAX
+    package's native/libsqlrs_intern.so, loaded in the same process, shares
+    nothing with it."""
+    import ctypes
+    import os
+
+    from sqlrs_tpu_torch.utils import native_build
+
+    if os.environ.get("SQLRS_TPU_NATIVE_INTERN", "1") == "0":
+        return None
+    try:
+        lib = ctypes.CDLL(
+            native_build.build(
+                os.path.join(native_build.NATIVE_DIR, "interner.cpp"),
+                "libsqlrs_intern",
+            )
+        )
+    except Exception:
+        return None
+    lib.sqlrs_intern_bulk_ucs4.restype = ctypes.c_int64
+    lib.sqlrs_intern_bulk_ucs4.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.sqlrs_intern_one.restype = ctypes.c_int32
+    lib.sqlrs_intern_one.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    return lib
+
+
 class StringDictionary:
-    def __init__(self) -> None:
+    def __init__(self, native_ok: bool = False) -> None:
         self._codes: dict[str, int] = {}
         self._values: list[str] = []
         self._ranks: np.ndarray | None = None  # lex rank per code, cached
         self._ranks_dev: dict = {}  # torch.device -> rank tensor
         self._match_tables: dict = {}  # key -> _MatchTable
+        # the native interner's hash map is global to its library (one
+        # bytes->code map, like this dictionary's contract); only the
+        # designated global instance may bind to it, and only while still
+        # empty so the two sides never diverge
+        self._native_ok = native_ok
+        self._native = None  # None = undecided, False = python path, else lib
         # incremental rank maintenance: codes in lex order + the values in
         # that order (object array, so merges use Python comparisons only
         # for the new entries)
         self._sorted_codes: np.ndarray | None = None
         self._sorted_vals: np.ndarray | None = None
 
+    def _native_lib(self):
+        if self._native is None:
+            self._native = (
+                (_load_intern_lib() or False)
+                if self._native_ok and not self._values
+                else False
+            )
+            if self._native:
+                import ctypes
+
+                self._is_new = ctypes.c_int32(0)
+                self._is_new_ptr = ctypes.pointer(self._is_new)
+        return self._native
+
+    @property
+    def native_bound(self) -> bool:
+        """True once this dictionary interns through the native map."""
+        return bool(self._native)
+
     def __len__(self) -> int:
         return len(self._values)
 
     def intern(self, s: str) -> int:
         code = self._codes.get(s)
-        if code is None:
-            code = len(self._values)
+        if code is not None:
+            return code
+        lib = self._native_lib()
+        if lib:
+            # the native map assigns the code; _codes only remembers the
+            # answer (a ctypes call costs ~20x a dict hit), so repeats of a
+            # string stay cheap and Python never assigns a code itself
+            b = s.encode("utf-32-le")
+            code = lib.sqlrs_intern_one(b, len(b), len(self._values), self._is_new_ptr)
+            if self._is_new.value:
+                self._values.append(s)
+                self._ranks = None
             self._codes[s] = code
-            self._values.append(s)
-            self._ranks = None
+            return code
+        code = len(self._values)
+        self._codes[s] = code
+        self._values.append(s)
+        self._ranks = None
         return code
 
     def intern_many(self, strings) -> np.ndarray:
@@ -130,6 +206,26 @@ class StringDictionary:
             and arr.ndim == 1
             and len(arr) > 256
         ):
+            lib = self._native_lib()
+            if lib:
+                import ctypes
+
+                buf = np.ascontiguousarray(arr)
+                width = buf.dtype.itemsize // 4
+                codes = np.empty(len(buf), np.int32)
+                new_rows = np.empty(len(buf), np.int64)
+                n_new = lib.sqlrs_intern_bulk_ucs4(
+                    buf.ctypes.data_as(ctypes.c_void_p),
+                    len(buf),
+                    width,
+                    len(self._values),
+                    codes.ctypes.data_as(ctypes.c_void_p),
+                    new_rows.ctypes.data_as(ctypes.c_void_p),
+                )
+                if n_new:
+                    self._values.extend(buf[new_rows[:n_new]].tolist())
+                    self._ranks = None
+                return codes
             # np.unique SORTS, which dominates bulk-load time for
             # high-cardinality columns (TPC-H comments are near-unique:
             # the sort costs ~5x the dict pass it was meant to save).
@@ -153,6 +249,19 @@ class StringDictionary:
         for i, s in enumerate(strings):
             out[i] = NULL_CODE if s is None else self.intern(s)
         return out
+
+    def intern_each(self, strings: list) -> np.ndarray:
+        """Codes of a list of str, as intern() on each in turn would give
+        them (first appearance). Bound to the native map, a long list goes
+        through the bulk call in one pass; a string with a NUL cannot ride a
+        numpy 'U' array and keeps the call per string."""
+        if self._native_lib() and len(strings) > 256 and not any(
+            "\x00" in s for s in strings
+        ):
+            return self.intern_many(np.array(strings, dtype=str))
+        return np.fromiter(
+            (self.intern(s) for s in strings), dtype=np.int32, count=len(strings)
+        )
 
     def lookup(self, code: int) -> str:
         return self._values[code]
@@ -227,7 +336,8 @@ class StringDictionary:
 
 
 # One dictionary per process: codes are globally comparable across tables.
-# This package keeps its dictionary on the pure-Python interning path; the
-# JAX package's native interner (native/interner.cpp) holds one
-# process-global map, which two dictionaries in one process must not share.
-GLOBAL_STRINGS = StringDictionary()
+# The global instance binds to this package's own build of the native C++
+# interner (native/interner.cpp) when a compiler is available, so bulk loads
+# assign codes at native speed, in first-appearance order; its map is not
+# the JAX package's, which loads another copy of the library.
+GLOBAL_STRINGS = StringDictionary(native_ok=True)

@@ -266,7 +266,7 @@ def _finalize(arrays, n_out: int, spec, reorder: bool = False,
     decimal sum, divided back by fdivs[i] = 10^k, a device tensor: a true
     division, not a multiplication by the reciprocal."""
     if reorder:
-        order = torch.argsort(arrays[order_ix][:n_out])
+        order = torch.argsort(arrays[order_ix][:n_out], stable=True)
 
         def take(a):
             return a[:n_out][order]
@@ -786,7 +786,10 @@ def _try_route(executor, op, agg, ordered: bool, reverse: bool = False,
     base_len = len(out)
     extras_flat: list = []
     need_sperm = bool(extra_groups) or (not ordered and fact_side == "left")
-    sperm = torch.argsort(dim_key_col.data.to(torch.int64)) if need_sperm else None
+    sperm = (
+        torch.argsort(dim_key_col.data.to(torch.int64), stable=True)
+        if need_sperm else None
+    )
     for _, idx, _ in extra_groups:
         c = dim_b.columns[idx]
         extras_flat.append(c.data[sperm])

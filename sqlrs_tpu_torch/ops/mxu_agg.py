@@ -216,7 +216,7 @@ def mxu_groupby_dense(keys, vals, n_groups: int, val_bits: int,
     if with_perm:
         from sqlrs_tpu_torch.ops.pipelines import _scatter
 
-        dim_perm = torch.argsort(dim_keys)
+        dim_perm = torch.argsort(dim_keys, stable=True)
         sums = _scatter(dim_perm, sums, n_groups)
         counts = _scatter(dim_perm, counts, n_groups)
     return sums, counts

@@ -509,7 +509,7 @@ def make_join_groupby(n_groups: int, strategy: str = "direct", slack: int = 2):
                 fact_keys, fact_vals, n_groups, val_bits,
                 key_min=int(dim_min), dim_keys=dim_keys, with_perm=True,
             )
-        order = torch.argsort(dim_keys)
+        order = torch.argsort(dim_keys, stable=True)
         # fk_complete (every fact key matches some dim key) lets NON-dense
         # dims share range boundaries too
         return join_groupby_direct(
@@ -527,7 +527,7 @@ def _make_sorted(n_groups: int, strategy: str, run_capacity: int):
     if strategy == "sorted_packed":
 
         def fn_packed(fact_keys, fact_vals, dim_keys, val_bits: int = 7):
-            order = torch.argsort(dim_keys)
+            order = torch.argsort(dim_keys, stable=True)
             sums, counts, _ = join_groupby_sorted_packed(
                 fact_keys, fact_vals, dim_keys[order], order, n_groups, run_capacity,
                 val_bits,
@@ -537,7 +537,7 @@ def _make_sorted(n_groups: int, strategy: str, run_capacity: int):
         return fn_packed
 
     def fn(fact_keys, fact_vals, dim_keys):
-        order = torch.argsort(dim_keys)
+        order = torch.argsort(dim_keys, stable=True)
         sums, counts, _ = join_groupby_sorted(
             fact_keys, fact_vals, dim_keys[order], order, n_groups, run_capacity
         )

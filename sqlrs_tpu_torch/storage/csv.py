@@ -114,9 +114,7 @@ def read_csv_file(path: str, config: CsvConfig | None = None) -> DataTable:
         raw = [r[i] for r in data_rows]
         valid = np.ones(n, dtype=np.bool_)
         if t == LogicalType.VARCHAR:
-            data = np.fromiter(
-                (GLOBAL_STRINGS.intern(v) for v in raw), dtype=np.int32, count=n
-            )
+            data = GLOBAL_STRINGS.intern_each(raw)
         elif t == LogicalType.BIGINT:
             data = np.zeros(n, dtype=np.int64)
             for j, v in enumerate(raw):

@@ -5,23 +5,18 @@ same contract as storage/csv.read_csv_file, which stays the semantics source
 of truth and the path taken when no compiler is available. The env var
 SQLRS_TPU_NATIVE_CSV=0 turns the native path off.
 
-The library is built from the repository's source at first use, with
-`g++ -O2 -fPIC -std=c++17 -shared`, into build/native/ at the repository
-root. The file name carries a hash of the source and the flags, and the
-build writes a temporary name first and renames it, so an edited source
-never loads a stale build and two processes that build at once do not
-collide. Importing this module needs no compiler. VARCHAR cells intern
-through this package's Python dictionary (data/strings.GLOBAL_STRINGS), in
+The library is built from the repository's source at first use into
+build/native/ at the repository root (utils/native_build.py: a file name
+that carries a hash of the source and the flags, a locked build and an
+atomic rename). Importing this module needs no compiler. VARCHAR cells
+intern through this package's dictionary (data/strings.GLOBAL_STRINGS), in
 column order then row order, as read_csv_file interns them.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
@@ -31,13 +26,9 @@ from sqlrs_tpu_torch.errors import StorageError
 from sqlrs_tpu_torch.storage.csv import CsvConfig
 from sqlrs_tpu_torch.storage.memory import DataTable
 from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils import native_build
 
-_REPO_DIR = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-SOURCE = os.path.join(_REPO_DIR, "native", "csv_loader.cpp")
-BUILD_DIR = os.path.join(_REPO_DIR, "build", "native")
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+SOURCE = os.path.join(native_build.NATIVE_DIR, "csv_loader.cpp")
 
 _TYPE_MAP = {
     0: LogicalType.BIGINT,
@@ -56,27 +47,7 @@ _lib_failed = False
 
 def library_path() -> str:
     """Where the build of the current source and flags lives."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libsqlrs_csv_{digest[:12]}.so")
-
-
-def _build() -> str:
-    out = library_path()
-    if not os.path.exists(out):
-        cxx = shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError("no g++ on PATH")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run(
-            [cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        os.replace(tmp, out)
-    return out
+    return native_build.library_path(SOURCE, "libsqlrs_csv")
 
 
 def _load_lib():
@@ -90,7 +61,7 @@ def _load_lib():
             _lib_failed = True
             return None
         try:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(native_build.build(SOURCE, "libsqlrs_csv"))
         except Exception:
             _lib_failed = True
             return None
@@ -150,10 +121,9 @@ def read_csv_native(path: str, config: CsvConfig | None = None) -> DataTable:
                     lib.csv_col_str_offsets(handle, i), (n + 1,)
                 ).copy()
                 raw = ctypes.string_at(lib.csv_col_str_bytes(handle, i), int(offs[-1]))
-                data = np.empty(n, dtype=np.int32)
-                intern = GLOBAL_STRINGS.intern
-                for r in range(n):
-                    data[r] = intern(raw[offs[r] : offs[r + 1]].decode("utf-8"))
+                data = GLOBAL_STRINGS.intern_each(
+                    [raw[offs[r] : offs[r + 1]].decode("utf-8") for r in range(n)]
+                )
             else:
                 ptr = ctypes.cast(
                     lib.csv_col_data(handle, i),

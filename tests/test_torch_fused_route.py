@@ -255,7 +255,7 @@ def test_multi_value_columns(multi_dbs, sql, route):
     "group by d.k order by d.k",
 ], ids=["two_minmax", "two_distinct", "left_join", "cross_residual",
         "distinct_unordered", "float_distinct"])
-def test_ineligible_shapes_raise_not_ported(multi_dbs, sql):
+def test_ineligible_shapes_take_the_general_operators(multi_dbs, sql):
     """Shapes the route turns down run the general join and GROUP BY, in
     the port as in the reference."""
     _unrouted(*multi_dbs, sql)
@@ -653,7 +653,7 @@ def test_float_measures_numpy_oracle():
     np.testing.assert_allclose(got, exp, rtol=1e-12)
 
 
-def test_semi_join_q18_shape_raises_not_ported():
+def test_semi_join_q18_shape_routes_above_the_semi_join():
     """An IN-subquery pushed below the star join (the Q18 shape): both
     engines route the join above the general semi join, to the same rows
     and route names."""
