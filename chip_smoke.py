@@ -2,8 +2,9 @@
 TPC-H Q1/Q6 at scale factor 1, the star rollup at bench.py's size, and all
 22 TPC-H queries at scale factor 1, all through
 `Database(device="cuda").run`, then the sharded engine over 4 shards on
-the same card, in one process and over torch.distributed, and last the
-SQL fuzz corpus on the card against the port's CPU run.
+the same card, in one process and over torch.distributed, the SQL fuzz
+corpus on the card against the port's CPU run, and the JAX package's own
+SQL test expectations on the card.
 
     python3 chip_smoke.py
 
@@ -144,6 +145,22 @@ Phases, each printing one line or a few:
                    2's launches (both > 0 required), routes, join strategies
                    (shuffle required), the seconds by engine and the
                    phase's seconds.
+
+ 12. sql_cases   — (run after phase 11, for the same reason) the JAX
+                   package's own SQL test expectations as a corpus
+                   (sqlrs_tpu_torch/benchmarks/sql_cases.py: the cases of
+                   tests/test_subqueries.py, test_sql_extended.py,
+                   test_fused_route.py, test_session.py,
+                   test_expressions.py, test_storage.py and test_types.py,
+                   which the fast tests hold on the JAX package and the port
+                   on the CPU), each case through Database(device="cuda")
+                   and over 4 shards sharing the card, each against the
+                   case's stated expectation (run_lines text, rows, error
+                   class, route names and the LIMIT's scan bound on one
+                   device), and the shard run against the one-device run.
+                   Prints one JSON line {"phase": "sql_cases", "cases",
+                   "failures", "by_source", "seconds", ...} with the
+                   kernels' launches (dense_group_sums > 0 required).
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -2659,6 +2676,82 @@ def phase_fuzz(dev, card: str) -> dict:
     return launches
 
 
+# ---- phase 12: the JAX package's own SQL test expectations on the card -----
+
+
+def phase_sql_cases(dev, card: str) -> dict:
+    """The corpus of the JAX package's SQL-level test expectations
+    (sqlrs_tpu_torch/benchmarks/sql_cases.py: tests/test_subqueries.py,
+    test_sql_extended.py, test_fused_route.py, test_session.py,
+    test_expressions.py, test_storage.py, test_types.py), every case run
+    through Database(device=dev) and through Database(mesh=...) over 4
+    shards that share the card, each held to the case's expectation by
+    sql_cases.run_case (route names and scan bounds on one device only),
+    and the shard run besides to the one-device run step by step (numbers
+    in text to rel 1e-9). A case carries its JAX test's environment
+    (SQLRS_TPU_MXU), so the routes launch the kernels there. Every failure
+    is printed, and any makes the phase raise. Returns each kernel's
+    launches in the phase."""
+    import tempfile
+
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import sql_cases
+    from sqlrs_tpu_torch.parallel.mesh import make_mesh
+    from sqlrs_tpu_torch.storage.memory import import_tables
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(DIST_SHARDS, devices=[dev] * DIST_SHARDS)
+    one = sql_cases.Engine(
+        str(dev), sqlrs_tpu_torch,
+        lambda profile: sqlrs_tpu_torch.Database(profile=profile, device=dev),
+        import_tables, device=dev)
+    shards = sql_cases.Engine(
+        f"{DIST_SHARDS} shards on {dev}", sqlrs_tpu_torch,
+        lambda profile: sqlrs_tpu_torch.Database(profile=profile, mesh=mesh),
+        import_tables, device=dev, sharded=True)
+    cases = sql_cases.all_cases()
+    engine_s = {"one_device": 0.0, "shards": 0.0}
+    failures, by_source = [], {}
+    _zero_kernel_counts()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="sql_cases_", dir=os.path.join(REPO, "build")) as tmp:
+        for case in cases:
+            n, bad = by_source.get(case.file, (0, 0))
+            single = None
+            for key, engine in (("one_device", one), ("shards", shards)):
+                t0 = time.perf_counter()
+                try:
+                    out = sql_cases.run_case(case, engine, tmp)
+                    if key == "one_device":
+                        single = out
+                    elif single is not None:
+                        diff = sql_cases.same_outputs(case, single, out)
+                        if diff is not None:
+                            raise sql_cases.CaseFailure(f"shards vs one device: {diff}")
+                except Exception as e:  # counted and printed; any one fails the phase
+                    failures.append((case.id, engine.name, f"{type(e).__name__}: {e}"))
+                    bad += 1
+                engine_s[key] += time.perf_counter() - t0
+            by_source[case.file] = (n + 1, bad)
+    torch.cuda.empty_cache()
+    launches = _kernel_counts()
+    print(json.dumps({
+        "phase": "sql_cases", "cases": len(cases), "failures": len(failures),
+        "by_source": {f: {"cases": n, "failures": b} for f, (n, b) in by_source.items()},
+        "seconds": round(time.perf_counter() - t_phase, 1),
+        "engine_seconds": {k: round(v, 1) for k, v in engine_s.items()},
+        "launches": {"grouped_histogram": launches["grouped_histogram"],
+                     "dense_group_sums": launches["dense_group_sums"]},
+        "card": card}), flush=True)
+    for case_id, engine, err in failures[:30]:
+        print(f"  FAILURE {case_id} ({engine}): {err[:800]}", flush=True)
+    if failures:
+        raise AssertionError(f"phase sql_cases: {len(failures)} failures")
+    if launches["dense_group_sums"] == 0:
+        raise AssertionError("phase sql_cases: dense_group_sums was never launched")
+    return launches
+
+
 def write_tables(tables: dict, tmpdir: str) -> str:
     """Pickle the tables (numpy columns) once for phase 10's children."""
     import pickle
@@ -2716,6 +2809,8 @@ def main() -> int:
     # LIKE pattern evaluates over the whole dictionary, about a second per
     # pattern once phase 6 has interned TPC-H's 2.3M strings
     launches_fuzz = phase_fuzz(dev, card)
+    # phase 12 too: its cases' LIKE patterns meet the same small dictionary
+    launches_cases = phase_sql_cases(dev, card)
     launches22, db22, slowest, tables22, results22, cpu_ops22 = phase_tpch22(dev, card)
     phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
                   lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
@@ -2752,7 +2847,8 @@ def main() -> int:
     del star
     launches_mp = phase_multiprocess(dev, card, tmp.name, tables_path, results22, results_dist)
     tmp.cleanup()
-    for extra in (launches22, launches_dist, launches_b, launches_mp, launches_fuzz):
+    for extra in (launches22, launches_dist, launches_b, launches_mp, launches_fuzz,
+                  launches_cases):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
             launches[name] += extra[name]

@@ -377,3 +377,114 @@ def test_route_log_with_threshold(monkeypatch, min_rows):
     assert routes == ([] if min_rows is None else ["hashagg_mxu"])
     # min() is not the histogram's: the sorted path, whatever the threshold
     assert _same(ref, port, "select s, min(v) from t group by s") == []
+
+
+# tests/test_grouped_agg.py's own inputs (its seeds, sizes and draws), held
+# to the reference's result or to the test's own oracle
+
+
+@pytest.mark.parametrize("nkeys", [1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_differential_vs_legacy_reference_inputs(seed, nkeys):
+    rng = np.random.default_rng(seed)
+    n = 3000
+    keys = [_both("BIGINT", [None if rng.random() < 0.07 else int(rng.integers(0, 40))
+                             for _ in range(n)]) for _ in range(nkeys)]
+    v = _both("BIGINT", [None if rng.random() < 0.1 else int(rng.integers(-50, 50))
+                         for _ in range(n)])
+    _run_both(keys, [("count", None, "BIGINT"), ("count", v, "BIGINT"), ("sum", v, "BIGINT"),
+                     ("min", v, "BIGINT"), ("max", v, "BIGINT"), ("avg", v, "DOUBLE")])
+    # and the port's sorted path equals its own legacy path's group count
+    p_gid, p_n = port_grouping.group_ids([k[1] for k in keys])
+    _g, _a, n_groups = port_ga.sorted_grouped_aggregate([k[1] for k in keys],
+                                                        [("count", None, PLT.BIGINT)])
+    assert n_groups == p_n
+
+
+def test_varchar_keys_and_minmax_reference_inputs():
+    rng = np.random.default_rng(7)
+    n = 2000
+    words = ["alpha", "beta", "gamma", "", "delta", None]
+    kvals = [words[rng.integers(0, len(words))] for _ in range(n)]
+    svals = [None if rng.random() < 0.2 else words[rng.integers(0, 5)] for _ in range(n)]
+    k, s = _both("VARCHAR", kvals), _both("VARCHAR", svals)
+    _run_both([k], [("min", s, "VARCHAR"), ("max", s, "VARCHAR"), ("count", None, "BIGINT")])
+
+
+def _setup_both(setup):
+    ref, port = sqlrs_tpu.Database(), sqlrs_tpu_torch.Database(device="cpu")
+    ref.run(setup)
+    port.run(setup)
+    return ref, port
+
+
+def test_filter_fused_into_aggregate_matches_compacted():
+    """_dbs(40_000)'s k and v are the reference test's (seed 21, drawn
+    first), against its oracle."""
+    n = 40_000
+    ref, port = _dbs(n)
+    rng = np.random.default_rng(21)
+    k, v = rng.integers(0, 50, n), rng.integers(-100, 100, n)
+    m = v > 10
+    order, seen = [], set()
+    for kk in k[m]:
+        if kk not in seen:
+            seen.add(kk)
+            order.append(kk)
+    exp = []
+    for kk in order:
+        sel = m & (k == kk)
+        exp.append(f"{kk} {v[sel].sum()} {sel.sum()} {v[sel].min()} {v[sel].max()}")
+    for sql, want in (
+        ("select k, sum(v), count(*), min(v), max(v) from t where v > 10 group by k", exp),
+        ("select sum(v), count(*) from t where v > 9000", ["NULL 0"]),
+    ):
+        _same(ref, port, sql)
+        assert port.run_lines(sql) == want, sql
+
+
+def test_distinct_aggregates_sorted_path():
+    rng = np.random.default_rng(5)
+    n = 500
+    k = rng.integers(0, 12, n)
+    v = rng.integers(0, 9, n)
+    knull = rng.random(n) < 0.08
+    vnull = rng.random(n) < 0.15
+    setup = ("create table t(k int, v int); insert into t values " + ",".join(
+        f"({'null' if knull[i] else int(k[i])},{'null' if vnull[i] else int(v[i])})"
+        for i in range(n)))
+    order, seen = [], {}
+    for i in range(n):
+        kk = None if knull[i] else int(k[i])
+        if kk not in seen:
+            seen[kk] = {"d": set(), "c": 0, "s": 0}
+            order.append(kk)
+        if not vnull[i]:
+            seen[kk]["d"].add(int(v[i]))
+            seen[kk]["c"] += 1
+            seen[kk]["s"] += int(v[i])
+    exp = [f"{'NULL' if kk is None else kk} {len(st['d'])} "
+           f"{sum(st['d']) if st['d'] else 'NULL'} {st['c']} {st['s'] if st['c'] else 'NULL'}"
+           for kk, st in ((kk, seen[kk]) for kk in order)]
+    sql = "select k, count(distinct v), sum(distinct v), count(v), sum(v) from t group by k"
+    ref, port = _setup_both(setup)
+    _same(ref, port, sql)
+    assert port.run_lines(sql) == exp
+
+
+def test_distinct_aggregate_with_filter_fusion():
+    setup = ("create table t(k int, v int); "
+             "insert into t values (1,5),(1,5),(1,6),(2,7),(2,7),(1,5),(3,1)")
+    ref, port = _setup_both(setup)
+    for sql, want in (("select k, count(distinct v) from t where v > 1 group by k", ["1 2", "2 1"]),
+                      ("select k, avg(distinct v) from t group by k", ["1 5.5", "2 7", "3 1"])):
+        _same(ref, port, sql)
+        assert port.run_lines(sql) == want, sql
+
+
+def test_distinct_varchar_count():
+    setup = ("create table t(k int, s varchar); "
+             "insert into t values (1,'a'),(1,'b'),(1,'a'),(2,'c'),(2,null),(2,'c')")
+    ref, port = _setup_both(setup)
+    _same(ref, port, "select k, count(distinct s) from t group by k")
+    assert port.run_lines("select k, count(distinct s) from t group by k") == ["1 2", "2 1"]

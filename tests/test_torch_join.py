@@ -341,3 +341,28 @@ def test_large_two_key_mark_packs():
     rows = _same(ref, port, "select count(*) from li l1 where exists "
                  "(select * from li l2 where l2.pk = l1.pk and l2.sk <> l1.sk)")
     assert rows[0][0] > 0
+
+
+def test_match_counts_pack2_differential(monkeypatch):
+    """tests/test_kernels.py::test_match_counts_pack2_differential's inputs:
+    two-key mark-join counts with the packed operand forced on and off, in
+    the port against the reference's and a brute force."""
+    rng = np.random.default_rng(23)
+    nb, np_ = 800, 1100
+    bk1, bk2 = rng.integers(-50, 50, nb), rng.integers(1000, 1030, nb)
+    pk1, pk2 = rng.integers(-60, 60, np_), rng.integers(995, 1035, np_)
+    bv1, bv2 = rng.random(nb) > 0.1, rng.random(nb) > 0.1
+    pv1, pv2 = rng.random(np_) > 0.1, rng.random(np_) > 0.1
+    build = [_col("BIGINT", bk1, bv1), _col("BIGINT", bk2, bv2)]
+    probe = [_col("BIGINT", pk1, pv1), _col("BIGINT", pk2, pv2)]
+    got = {}
+    for name, rows in (("plain", 1 << 60), ("packed", 0)):
+        monkeypatch.setattr(ref_join, "_PACK2_MIN_ROWS", rows)
+        monkeypatch.setattr(port_join, "_PACK2_MIN_ROWS", rows)
+        r = _np(ref_join.match_counts([c[0] for c in build], [c[0] for c in probe]))
+        got[name] = _np(port_join.match_counts([c[1] for c in build], [c[1] for c in probe]))
+        assert np.array_equal(got[name], r), name
+    ok_b = bv1 & bv2
+    exp = np.array([int(np.sum(ok_b & (bk1 == pk1[i]) & (bk2 == pk2[i])))
+                    if pv1[i] and pv2[i] else 0 for i in range(np_)])
+    assert np.array_equal(got["plain"], exp) and np.array_equal(got["packed"], exp)

@@ -336,11 +336,22 @@ def _cells_match(got_line: str, exp_line: str) -> bool:
 
 
 def _single_controller(n_shards: int) -> dict:
+    """The single-controller run, on the workers' two intra-op threads (as
+    `worker` sets them): with a thread for every core, these runs took
+    about 5 s alone but past the children's deadline beside the other test
+    workers' load, their parallel regions waiting on descheduled threads."""
+    import torch
+
     import sqlrs_tpu_torch
 
-    db = sqlrs_tpu_torch.Database(device="cpu", n_devices=n_shards)
-    load_tpch(db)
-    return run_statements(db, profile_q3=True)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        db = sqlrs_tpu_torch.Database(device="cpu", n_devices=n_shards)
+        load_tpch(db)
+        return run_statements(db, profile_q3=True)
+    finally:
+        torch.set_num_threads(n_threads)
 
 
 @pytest.fixture(scope="module")

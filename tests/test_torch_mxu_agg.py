@@ -223,3 +223,48 @@ def test_dense_xla_formulation_matches_reference(bits, hi):
     assert np.array_equal(pc.numpy(), np.asarray(rc))
     exp_s, exp_c = _numpy_dense(keys, vals, g)
     assert np.array_equal(ps.numpy(), exp_s) and np.array_equal(pc.numpy(), exp_c)
+
+
+# tests/test_kernels.py's and tests/test_mxu_grouped.py's own inputs (their
+# seeds and shapes) for the dense-group kernel's plain version
+
+
+def test_mxu_groupby_dense_matches_numpy_reference_inputs():
+    """tests/test_kernels.py::test_mxu_groupby_dense_matches_numpy: one
+    generator, the 1-limb then the 3-limb values drawn from it in turn."""
+    rng = np.random.default_rng(7)
+    n, g = 70_000, 700
+    keys = rng.integers(0, g, n).astype(np.int64)
+    keys[::11] = -3
+    keys[::17] = g + 9
+    for bits, hi in ((7, 100), (23, 1 << 23)):
+        vals = rng.integers(0, hi, n).astype(np.int64)
+        es, ec = _numpy_dense(keys, vals, g)
+        for fn in (port.mxu_groupby_dense, port.mxu_groupby_dense_xla):
+            s, c = fn(torch.from_numpy(keys), torch.from_numpy(vals), g, bits)
+            assert np.array_equal(s.numpy(), es) and np.array_equal(c.numpy(), ec), (fn, bits)
+
+
+def test_mxu_eligible_boundaries(monkeypatch):
+    """tests/test_mxu_grouped.py::test_mxu_eligible_boundaries, with the
+    backend admitted as the reference's test has it (interpret)."""
+    monkeypatch.setenv("SQLRS_TPU_MXU", "interpret")
+    vmax_ok = (1 << port.MXU_MAX_VAL_BITS) - 1
+    g = port.MXU_MAX_GROUPS
+    cpu = torch.device("cpu")
+    for args, want in (((g, vmax_ok, 0, True), True), ((g + 1, vmax_ok, 0, True), False),
+                       ((g, vmax_ok + 1, 0, True), False), ((g, vmax_ok, -1, True), False),
+                       ((g, vmax_ok, 0, False), False), ((0, vmax_ok, 0, True), False)):
+        assert port.mxu_eligible(*args, cpu) == ref.mxu_eligible(*args) == want, args
+
+
+def test_mxu_kernel_at_group_cap_2_16():
+    """tests/test_mxu_grouped.py::test_mxu_kernel_at_group_cap_2_16's inputs."""
+    n, g = 1 << 15, 1 << 16
+    rng = np.random.default_rng(9)
+    k = rng.integers(0, g, n)
+    v = rng.integers(0, (1 << 24) - 1, n)
+    s, c = port.mxu_groupby_dense(torch.from_numpy(k), torch.from_numpy(v), g, 24)
+    assert np.array_equal(s.numpy(), np.bincount(k, weights=v.astype(np.float64),
+                                                  minlength=g).astype(np.int64))
+    assert np.array_equal(c.numpy(), np.bincount(k, minlength=g))

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import sqlrs_tpu  # noqa: F401  (x64)
+import sqlrs_tpu_torch
 import jax.numpy as jnp
 from sqlrs_tpu.data import Column as RefColumn
 from sqlrs_tpu.ops import mxu_grouped as ref_mxu
@@ -25,7 +26,9 @@ from sqlrs_tpu.types import LogicalType as RLT
 
 from sqlrs_tpu_torch.data import Column as PortColumn
 from sqlrs_tpu_torch.ops import mxu_grouped as port_mxu
+from sqlrs_tpu_torch.storage.memory import import_tables
 from sqlrs_tpu_torch.types import LogicalType as PLT
+from tests.torch_fuzz_harness import ref_import
 
 @pytest.fixture(autouse=True)
 def _mxu_interpret(monkeypatch):
@@ -202,3 +205,84 @@ def test_ineligible_inputs_both_none(kind):
     else:
         ref, port = _run_both({"keys": keys, "vals": vals}, aggs, alive=alive)
     assert ref is None and port is None
+
+
+def test_sql_differential_q1_shape(monkeypatch):
+    """tests/test_mxu_grouped.py::test_sql_differential_q1_shape's table
+    through both engines: the histogram path (SQLRS_TPU_MXU=interpret)
+    logs hashagg_mxu in both and gives the reference's rows, and the sorted
+    path's (SQLRS_TPU_MXU=0) rows up to the reference test's tolerance."""
+    rng = np.random.default_rng(11)
+    n = 2500
+    flags = np.array(["A", "N", "R"], dtype=object)
+    tables = {"li": [
+        ("f", "VARCHAR", flags[rng.integers(0, 3, n)], None),
+        ("q", "BIGINT", rng.integers(1, 51, n), None),
+        ("p", "DOUBLE", np.round(rng.uniform(900, 105000, n), 2), None),
+        ("d", "DOUBLE", np.round(rng.uniform(0, 0.1, n), 2), None),
+    ]}
+    q = "select f, sum(q), sum(p*(1-d)), avg(p), count(*) from li where q < 45 group by f"
+
+    def close(a, b):
+        for x, y in zip(a.split(), b.split()):
+            assert x == y or abs(float(x) - float(y)) <= 1e-6 * max(1.0, abs(float(x))), (a, b)
+
+    out = {}
+    for name, db, load in (("ref", sqlrs_tpu.Database(), ref_import),
+                           ("port", sqlrs_tpu_torch.Database(device="cpu"), import_tables)):
+        load(db, tables)
+        monkeypatch.setenv("SQLRS_TPU_MXU", "0")
+        base = db.run_lines(q)
+        monkeypatch.setenv("SQLRS_TPU_MXU", "interpret")
+        db.last_fused_routes = []
+        got = db.run_lines(q)
+        assert "hashagg_mxu" in db.last_fused_routes, name
+        assert len(base) == len(got)
+        for a, b in zip(base, got):
+            close(a, b)
+        out[name] = got
+    assert len(out["ref"]) == len(out["port"])
+    for a, b in zip(out["ref"], out["port"]):
+        close(a, b)
+
+
+def test_double_fixed_point_and_products_reference_inputs(record_property):
+    """tests/test_mxu_grouped.py::test_double_fixed_point_and_products' own
+    draws: the 6-dp charge's sums and averages against the reference and
+    its exact decimal oracle, and non-decimal doubles turned down."""
+    from decimal import Decimal
+
+    rng = np.random.default_rng(3)
+    n = 2000
+    k = rng.integers(0, 3, n)
+    p = np.round(rng.uniform(900, 105000, n), 2)
+    d = np.round(rng.uniform(0, 0.1, n), 2)
+    t = np.round(rng.uniform(0, 0.08, n), 2)
+    case = {"keys": [("BIGINT", k)], "vals": [("DOUBLE", p * (1 - d) * (1 + t))]}
+    ref, port = _run_both(case, [("sum", 0, "DOUBLE"), ("avg", 0, "DOUBLE")])
+    assert port is not None
+    _assert_same(ref, port, record_property)
+    gcols, acols, ng = port
+    for j in range(ng):
+        m = k == int(gcols[0].data[j])
+        exact = sum(int(round(pi * 100)) * (100 - int(round(di * 100)))
+                    * (100 + int(round(ti * 100))) for pi, di, ti in zip(p[m], d[m], t[m]))
+        exp = float(Decimal(exact) / Decimal(10 ** 6))
+        assert abs(float(acols[0].data[j]) - exp) <= 1e-9 * max(1.0, abs(exp))
+        assert abs(float(acols[1].data[j]) - exp / m.sum()) <= 1e-9 * max(1.0, abs(exp))
+    bad = {"keys": [("BIGINT", k)], "vals": [("DOUBLE", rng.uniform(0, 1, n))]}
+    assert _run_both(bad, [("sum", 0, "DOUBLE")]) == (None, None)
+
+
+def test_null_keys_and_alive_mask_reference_inputs(record_property):
+    """tests/test_mxu_grouped.py::test_null_keys_and_alive_mask's own draws."""
+    rng = np.random.default_rng(5)
+    n = 1500
+    k = rng.integers(0, 5, n)
+    kvalid = rng.random(n) > 0.1
+    v = rng.integers(0, 100, n)
+    alive = rng.random(n) > 0.3
+    case = {"keys": [("BIGINT", k, kvalid)], "vals": [("BIGINT", v)]}
+    ref, port = _run_both(case, [("count", None, "BIGINT"), ("sum", 0, "BIGINT")], alive=alive)
+    assert port is not None
+    _assert_same(ref, port, record_property)

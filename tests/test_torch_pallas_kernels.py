@@ -127,3 +127,31 @@ def test_wrappers_reject_bad_inputs(change):
     for fn in (port.row_rank_ge, port.masked_row_sum):
         with pytest.raises(ValueError):
             fn(x2d, b, q)
+
+
+# tests/test_pallas.py's own inputs (its seeds and shapes), held the same way
+
+
+@pytest.mark.parametrize("nq", [8, 200, 1024])
+def test_row_rank_ge_reference_inputs(nq):
+    rng = np.random.default_rng(0)
+    nb = 64
+    sp2d = np.sort(rng.integers(0, 10_000, (nb, 128)).astype(np.int32).ravel()).reshape(nb, 128)
+    b = rng.integers(0, nb, nq).astype(np.int32)
+    q = rng.integers(0, 10_000, nq).astype(np.int32)
+    got = port.row_rank_ge(torch.from_numpy(sp2d), torch.from_numpy(b), torch.from_numpy(q))
+    assert np.array_equal(got.numpy(), (sp2d[b] >= q[:, None]).sum(1))
+    r = ref.row_rank_ge(jnp.asarray(sp2d), jnp.asarray(b), jnp.asarray(q), interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(r))
+
+
+def test_masked_row_sum_reference_inputs():
+    rng = np.random.default_rng(1)
+    nb, nq = 32, 500
+    v2d = rng.integers(0, 100, (nb, 128)).astype(np.int32)
+    b = rng.integers(0, nb, nq).astype(np.int32)
+    rem = rng.integers(0, 129, nq).astype(np.int32)
+    got = port.masked_row_sum(torch.from_numpy(v2d), torch.from_numpy(b), torch.from_numpy(rem))
+    assert np.array_equal(got.numpy(), np.array([v2d[b[i], : rem[i]].sum() for i in range(nq)]))
+    r = ref.masked_row_sum(jnp.asarray(v2d), jnp.asarray(b), jnp.asarray(rem), interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(r))

@@ -332,3 +332,84 @@ def test_join_groupby_sorted_run_overflow(run_capacity):
     _same_outputs(ref.join_groupby_sorted(*args_r), port.join_groupby_sorted(*args_p))
     _same_outputs(ref.join_groupby_sorted_packed(*args_r, 8),
                   port.join_groupby_sorted_packed(*args_p, 8))
+
+
+# tests/test_kernels.py's pipeline tests on their own inputs (seeds, sizes,
+# dim keys), each against the reference's strategy and its numpy oracle
+
+
+def _gid_oracle(gid, fv, groups, m=None):
+    m = np.ones(len(gid), bool) if m is None else m
+    s, c = np.zeros(groups, np.int64), np.zeros(groups, np.int64)
+    np.add.at(s, gid[m], fv[m])
+    np.add.at(c, gid[m], 1)
+    return s, c
+
+
+def test_fused_join_groupby_pipeline():
+    rng = np.random.default_rng(3)
+    n, groups = 50_000, 128
+    gid = rng.integers(0, groups, n)
+    dim_keys = np.arange(groups, dtype=np.int64) * 13 + 5
+    fk = dim_keys[gid]
+    fv = rng.integers(0, 50, n).astype(np.int64)
+    r = ref.make_join_groupby(groups)(_j(fk), _j(fv), _j(dim_keys))
+    p = port.make_join_groupby(groups)(_t(fk), _t(fv), _t(dim_keys))
+    _same_outputs(r, p)
+    es, ec = _gid_oracle(gid, fv, groups)
+    assert np.array_equal(p[0].numpy(), es) and np.array_equal(p[1].numpy(), ec)
+
+
+def test_packed_pipeline_matches_plain():
+    rng = np.random.default_rng(9)
+    n, groups = 60_000, 300
+    gid = rng.integers(0, groups, n)
+    dim_keys = np.arange(groups, dtype=np.int64) * 977 + 11
+    fk, fv = dim_keys[gid], rng.integers(0, 128, n).astype(np.int64)
+    base = port.make_join_groupby(groups, strategy="sorted")(_t(fk), _t(fv), _t(dim_keys))
+    for strategy, args in (("sorted_packed", {"val_bits": 8}),
+                           ("direct", {"val_bits": 8, "pack32": False}),
+                           ("direct", {"val_bits": 8, "pack32": True})):
+        r = ref.make_join_groupby(groups, strategy=strategy)(_j(fk), _j(fv), _j(dim_keys), **args)
+        p = port.make_join_groupby(groups, strategy=strategy)(_t(fk), _t(fv), _t(dim_keys), **args)
+        _same_outputs(r, p)
+        assert np.array_equal(p[0].numpy(), base[0].numpy()), (strategy, args)
+        assert np.array_equal(p[1].numpy(), base[1].numpy()), (strategy, args)
+    es, ec = _gid_oracle(gid, fv, groups)
+    assert np.array_equal(base[0].numpy(), es) and np.array_equal(base[1].numpy(), ec)
+
+
+def test_direct_pipeline_misses_and_odd_sizes():
+    rng = np.random.default_rng(11)
+    n, groups = 9_973, 64  # prime n: block padding
+    gid = rng.integers(0, groups, n)
+    dim_keys = np.arange(groups, dtype=np.int64) * 1013904223 + 12345
+    fk = dim_keys[gid].copy()
+    fk[::11] = 7  # misses
+    fv = rng.integers(0, 100, n).astype(np.int64)
+    r = ref.make_join_groupby(groups, strategy="direct")(_j(fk), _j(fv), _j(dim_keys))
+    p = port.make_join_groupby(groups, strategy="direct")(_t(fk), _t(fv), _t(dim_keys))
+    _same_outputs(r, p)
+    es, ec = _gid_oracle(gid, fv, groups, fk != 7)
+    assert np.array_equal(p[0].numpy(), es) and np.array_equal(p[1].numpy(), ec)
+
+
+def test_direct_pipeline_dense_boundary_sharing():
+    rng = np.random.default_rng(13)
+    n, groups, base = 10_007, 96, 50
+    gid = rng.integers(0, groups, n)
+    dim_keys = np.arange(groups, dtype=np.int64) + base
+    fk = dim_keys[gid].copy()
+    fk[::7] = 3
+    fk[5::13] = base + groups + 9
+    fv = rng.integers(0, 100, n).astype(np.int64)
+    es, ec = _gid_oracle(gid, fv, groups, (fk >= base) & (fk < base + groups))
+    fn_r = ref.make_join_groupby(groups, strategy="direct")
+    fn_p = port.make_join_groupby(groups, strategy="direct")
+    for pack32 in (False, True):
+        for span in ({"dim_min": base, "dim_max": base + groups - 1}, {}):
+            kw = dict(val_bits=7, pack32=pack32, **span)
+            r = fn_r(_j(fk), _j(fv), _j(dim_keys), **kw)
+            p = fn_p(_t(fk), _t(fv), _t(dim_keys), **kw)
+            _same_outputs(r, p)
+            assert np.array_equal(p[0].numpy(), es) and np.array_equal(p[1].numpy(), ec), kw

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 import sqlrs_tpu  # noqa: F401  (x64)
+import sqlrs_tpu_torch
 import jax.numpy as jnp
 from sqlrs_tpu.data import Column as RefColumn
 from sqlrs_tpu.data.strings import GLOBAL_STRINGS as REF_STRINGS
@@ -18,7 +19,9 @@ from sqlrs_tpu_torch.data import Column as PortColumn
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS as PORT_STRINGS
 from sqlrs_tpu_torch.ops import fused as port_fused
 from sqlrs_tpu_torch.ops import sort as port_sort
+from sqlrs_tpu_torch.storage.memory import import_tables
 from sqlrs_tpu_torch.types import LogicalType as PLT
+from tests.torch_fuzz_harness import ref_import
 
 N = 400
 
@@ -90,3 +93,24 @@ def test_sort_rows_and_compaction_match_reference():
         np.asarray(ref_sort.compact_indices(r_keep, count)),
         port_fused.compact_indices(p_keep.data, p_keep.valid, count).numpy(),
     )
+
+
+def test_sort_based_filter_compaction():
+    """tests/test_kernels.py::test_sort_based_filter_compaction's inputs:
+    a filter over 2^18 + 123 rows (the stable flag-sort compaction path) in
+    the reference and the port, rows in their original order, against
+    numpy."""
+    n = (1 << 18) + 123
+    rng = np.random.default_rng(5)
+    v = rng.integers(0, 1000, n).astype(np.int64)
+    w = rng.integers(0, 10, n).astype(np.int64)
+    null_mask = rng.random(n) < 0.1
+    tables = {"big": [("v", "BIGINT", v, ~null_mask), ("w", "BIGINT", w, None)]}
+    keep = (~null_mask) & (v < 100) & (w == 3)
+    for db, load in ((sqlrs_tpu.Database(), ref_import),
+                     (sqlrs_tpu_torch.Database(device="cpu"), import_tables)):
+        load(db, tables)
+        (got,) = db.run("select v, w from big where v < 100 and w = 3")
+        assert got.num_rows == int(keep.sum())
+        rows = np.array(got.to_pylist(), dtype=np.int64).reshape(-1, 2)
+        assert np.array_equal(rows[:, 0], v[keep]) and np.array_equal(rows[:, 1], w[keep])
