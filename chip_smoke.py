@@ -162,6 +162,33 @@ Phases, each printing one line or a few:
                    "failures", "by_source", "seconds", ...} with the
                    kernels' launches (dense_group_sums > 0 required).
 
+ 13. programs    — utils/programs.py, the counterpart of the JAX package's
+                   jax.jit programs: every program is a CUDA graph captured at
+                   its second call and replayed after, and every earlier
+                   phase runs with programs on (SQLRS_TPU_FUSE unset).
+                   In two halves. Right after phase 12 (printed as
+                   `programs_corpus`): one program called five times with
+                   inputs at new addresses, every result kept and right;
+                   then phase 11's fuzz statements and phase 12's cases on
+                   one device with programs on, on, off (SQLRS_TPU_FUSE=0),
+                   on, every result bit-equal to the off run, and
+                   dense_group_sums launched from a replayed graph. After
+                   phase 7 (printed as `programs_tpch`): on phase 6's tables,
+                   the 22 and a lineitem self-join after programs.clear():
+                   a pass off, a pass on (first sightings, eager), a pass
+                   on (captures), then off, on, on, off, every run
+                   bit-equal to the first off run and to phase 6's rows;
+                   one profiled run of each query on and off. Per query and
+                   in total: launches (kernel launches as phase 7 counts
+                   them, plus cudaGraphLaunch) beside the reference's
+                   dispatch count (REF_DISPATCHES, taken on the CPU with
+                   the JAX package), memory copies, syncs, device ms, warm,
+                   cold and capture-run ms, peak GB; graphs, pool bytes,
+                   captures, replays, capture seconds and the calls routed
+                   eagerly by reason. grouped_histogram must have been
+                   launched from a replayed graph. A failed capture or
+                   replay raises ProgramError, which no phase catches.
+
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
 non-zero. Without CUDA it exits non-zero before printing anything.
@@ -1190,6 +1217,9 @@ PROFILED_FUNCTIONS = (
     "ops.mxu_grouped.mxu_grouped_aggregate", "exec.fused_route.try_agg_join_route",
     "exec.fused_route.try_order_agg_join_route", "ops.elementwise.like_match",
     "ops.elementwise.substring_column",
+    # programs (utils/programs.py), whose inner functions a replay skips
+    "ops.join._phase_a_prog", "ops.join._expand_gather_prog", "ops.sort._sort_rows_prog",
+    "ops.fused.compact_gather_arrays", "exec.executor._gather_pairs",
 )
 
 
@@ -1268,7 +1298,8 @@ def phase_profile(card: str, label: str, run, runs: int = 5, functions=(),
         f"(median of {timed} unprofiled: {', '.join(f'{t:.3f}' for t in warm)}); profiled "
         f"over {runs} runs: device {device_ms:.3f} ms per run, busy share "
         f"{device_ms * runs / wall_ms:.3f}, kernel launches "
-        f"{sum(calls.get(c, 0) for c in _LAUNCH_CALLS) / runs:.1f}, stream syncs "
+        f"{sum(calls.get(c, 0) for c in _LAUNCH_CALLS) / runs:.1f}, graph launches "
+        f"{calls.get('cudaGraphLaunch', 0) / runs:.1f}, stream syncs "
         f"{sum(calls.get(c, 0) for c in _SYNC_CALLS) / runs:.1f}, cudaMemcpyAsync "
         f"{calls.get('cudaMemcpyAsync', 0) / runs:.1f} per run [{card}]",
         flush=True,
@@ -2729,6 +2760,8 @@ def phase_sql_cases(dev, card: str) -> dict:
                         if diff is not None:
                             raise sql_cases.CaseFailure(f"shards vs one device: {diff}")
                 except Exception as e:  # counted and printed; any one fails the phase
+                    if sql_cases.is_program_error(e):
+                        raise  # a failed capture or replay ends the script
                     failures.append((case.id, engine.name, f"{type(e).__name__}: {e}"))
                     bad += 1
                 engine_s[key] += time.perf_counter() - t0
@@ -2749,6 +2782,337 @@ def phase_sql_cases(dev, card: str) -> dict:
         raise AssertionError(f"phase sql_cases: {len(failures)} failures")
     if launches["dense_group_sums"] == 0:
         raise AssertionError("phase sql_cases: dense_group_sums was never launched")
+    return launches
+
+
+# ---- phase 13: programs (utils/programs.py) on and off -----------------------
+
+# The reference's dispatches a query, the count the JAX package's own
+# benchmarks/dispatch_count.py gives for one warm run on the CPU (jitted
+# programs + eager primitives + host fetches; `python -m
+# benchmarks.dispatch_count --sf 0.01 --queries 1,...,22`, its tables at
+# seed 0): 415 in all. The card's machine has no JAX, so the counts were
+# taken on the CPU and are data here.
+REF_DISPATCHES = {1: 6, 2: 33, 3: 50, 4: 11, 5: 17, 6: 4, 7: 19, 8: 26, 9: 17, 10: 14,
+                  11: 22, 12: 8, 13: 14, 14: 7, 15: 18, 16: 16, 17: 18, 18: 12, 19: 28,
+                  20: 28, 21: 30, 22: 17}
+LAUNCH_TARGET = 4000  # launches a pass of the 22 at SF1, programs on
+
+# a self-join whose two sides run one program signature each (the same
+# filter on the same resident columns): both results must stay live
+SELF_JOIN_SQL = """
+select a.l_orderkey, a.l_suppkey, a.l_quantity, b.l_extendedprice
+from lineitem a join lineitem b
+  on a.l_orderkey = b.l_orderkey and a.l_suppkey = b.l_suppkey
+where a.l_shipdate < date '1993-01-01' and b.l_shipdate < date '1993-01-01'
+order by a.l_orderkey, a.l_suppkey, a.l_quantity, b.l_extendedprice
+limit 50
+"""
+
+
+class fuse:
+    """`with fuse(False):` runs the block with SQLRS_TPU_FUSE=0."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+
+    def __enter__(self):
+        self.saved = os.environ.get("SQLRS_TPU_FUSE")
+        os.environ["SQLRS_TPU_FUSE"] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("SQLRS_TPU_FUSE")
+        else:
+            os.environ["SQLRS_TPU_FUSE"] = self.saved
+        return False
+
+
+def result_bits(outs) -> list:
+    """Every column of every batch as bytes (data, validity): equal lists
+    are bit-equal results."""
+    return [[(c.type.name, c.data.cpu().numpy().tobytes(), c.valid.cpu().numpy().tobytes())
+             for c in b.columns] for batches in outs for b in batches]
+
+
+def run_bits(db, stmts):
+    """(bits, ms) of a list of statements: ("error", type, message) for a
+    statement that raises SQL's error (a program's error raises)."""
+    from sqlrs_tpu_torch.utils.programs import ProgramError
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for stmt in stmts:
+        try:
+            outs.append(db.run(stmt))
+        except ProgramError:
+            raise
+        except Exception as e:  # noqa: BLE001 - SQL's error is the outcome
+            outs.append(("error", type(e).__name__, str(e)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [o if isinstance(o, tuple) else result_bits([o]) for o in outs], ms
+
+
+_COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy")
+
+
+def profiled_counts(run) -> dict:
+    """run() under torch.profiler: kernel launches (as phase 7 counts
+    them), graph launches, memory copies and sets, stream syncs, device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    calls = {e.key: e.count for e in events}
+    dev_us = sum(float(getattr(e, "self_device_time_total", 0) or 0) for e in events
+                 if str(e.device_type).endswith("CUDA"))
+    kernels = sum(calls.get(c, 0) for c in _LAUNCH_CALLS)
+    graphs = calls.get("cudaGraphLaunch", 0)
+    return {"kernels": kernels, "graphs": graphs, "launches": kernels + graphs,
+            "memcpy": sum(calls.get(c, 0) for c in _COPY_CALLS),
+            "memset": calls.get("cudaMemsetAsync", 0),
+            "syncs": sum(calls.get(c, 0) for c in _SYNC_CALLS), "device_ms": dev_us / 1e3}
+
+
+def _program_report() -> dict:
+    from sqlrs_tpu_torch.utils import programs
+
+    caches = programs.caches()
+    st = programs.stats.as_dict()
+    st["capture_s"] = round(st["capture_s"], 3)
+    st["graphs"] = sum(c.graphs() for c in caches.values())
+    st["pool_bytes"] = sum(c.pool_bytes for c in caches.values())
+    return st
+
+
+def phase_programs_corpus(dev, card: str) -> dict:
+    """Phase 13, its first half (run right after phase 12, while the string
+    dictionary is small): one program replayed with inputs at new
+    addresses; then every statement of phase 11's fuzz corpus and every
+    case of phase 12's corpus on Database(device=dev) with programs on
+    (a first run, which warms up; a second, which captures and replays; a
+    fourth, which replays) and with SQLRS_TPU_FUSE=0 (the third), in
+    turns: every result bit-equal to the programs-off run (fuzz: each
+    column's bytes; sql_cases: the outputs run_case returns, floats
+    compared exactly). The first three fuzz cases run under tiny cache
+    bounds, which must evict and flush. Kernel 2 must have been launched
+    from a replayed graph. Returns each kernel's launches in the phase."""
+    import tempfile
+
+    import sqlrs_tpu_torch
+    from sqlrs_tpu_torch.benchmarks import sql_cases, sql_fuzz
+    from sqlrs_tpu_torch.ops.fused import gather_arrays
+    from sqlrs_tpu_torch.storage.memory import import_tables
+    from sqlrs_tpu_torch.utils import programs
+
+    t_phase = time.perf_counter()
+    _zero_kernel_counts()
+    programs.reset_stats()
+    # one program, inputs at new addresses every call, every result kept
+    rng = np.random.default_rng(13)
+    kept = []
+    for _ in range(5):
+        a = torch.from_numpy(rng.integers(-9, 9, 1 << 20)).to(dev)
+        b = torch.from_numpy(rng.random(1 << 20)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, 1 << 20, 1 << 18)).to(dev)
+        kept.append(((a[idx], b[idx]), gather_arrays((a, b), idx)))
+    for (wa, wb), (ga, gb) in kept:
+        if not (torch.equal(wa, ga) and torch.equal(wb.view(torch.int64), gb.view(torch.int64))):
+            raise AssertionError("phase programs: a replay with new input addresses gave other values")
+    st = programs.stats
+    if st.replays != 4 or st.input_copies != 4:
+        raise AssertionError(f"phase programs: {st.replays} replays, {st.input_copies} input "
+                             f"copies for 5 calls of one signature (4 each expected)")
+    print(f"phase programs: one program (ops/fused.gather_arrays, 2^18 of 2^20 rows) called 5 "
+          f"times with inputs at new addresses: 1 warm-up, 1 capture, 4 replays, every result "
+          f"kept live and equal to the eager gather", flush=True)
+
+    cases = list(sql_fuzz.fast_tier_cases()) + [
+        sql_fuzz.gen_case(seed, "large") for seed in FUZZ_LARGE_SEEDS]
+    saved = os.environ.get("SQLRS_TPU_MXU")
+    os.environ["SQLRS_TPU_MXU"] = "interpret"  # phase 11's routes
+    n_stmt, diffs = 0, []
+    ms = {"on": 0.0, "off": 0.0}
+    # the first 3 cases under tiny bounds (8 signatures, 1 MB of pool): the
+    # LRU evicts graphs and starts new pools, the pool bound flushes
+    cache = programs.device_cache(dev)
+    bounds = (cache.max_entries, cache.max_pool_bytes)
+    cache.max_entries, cache.max_pool_bytes = 8, 1 << 20
+    tiny = (0, 0)
+    try:
+        for ci, case in enumerate(cases):
+            if ci == 3:
+                cache.max_entries, cache.max_pool_bytes = bounds
+                tiny = (programs.stats.flushes, programs.stats.evictions)
+            db = sqlrs_tpu_torch.Database(device=dev)
+            import_tables(db, case.tables)
+            for sql in case.statements:
+                runs = []
+                for on in (True, True, False, True):
+                    with fuse(on):
+                        bits, t = run_bits(db, [sql])
+                    runs.append(bits)
+                    ms["on" if on else "off"] += t
+                n_stmt += 1
+                for i in (0, 1, 3):
+                    if runs[i] != runs[2]:
+                        diffs.append((case.seed, case.size, sql, i))
+            del db
+    finally:
+        cache.max_entries, cache.max_pool_bytes = bounds
+        if saved is None:
+            os.environ.pop("SQLRS_TPU_MXU")
+        else:
+            os.environ["SQLRS_TPU_MXU"] = saved
+    if not (tiny[0] and tiny[1]):
+        raise AssertionError(f"phase programs: tiny bounds made {tiny[0]} flushes and "
+                             f"{tiny[1]} evictions (both expected)")
+    fuzz_s = time.perf_counter() - t_phase
+    one = sql_cases.Engine(
+        str(dev), sqlrs_tpu_torch,
+        lambda profile: sqlrs_tpu_torch.Database(profile=profile, device=dev),
+        import_tables, device=dev)
+    cases_ = sql_cases.all_cases()
+    with tempfile.TemporaryDirectory(prefix="programs_", dir=os.path.join(REPO, "build")) as tmp:
+        for case in cases_:
+            outs = []
+            for on in (True, True, False, True):
+                with fuse(on):
+                    outs.append(sql_cases.run_case(case, one, tmp))
+            for i in (0, 1, 3):
+                if repr(outs[i]) != repr(outs[2]):
+                    diffs.append(("sql_cases", case.id, "", i))
+    torch.cuda.empty_cache()
+    launches = _kernel_counts()
+    rep = _program_report()
+    print(f"  fuzz: {len(cases)} cases, {n_stmt} statements, each with programs on, on, off, "
+          f"on: {len(diffs)} results not bit-equal to the off run; {ms['on']:.1f} ms on (3 "
+          f"runs) vs {ms['off']:.1f} ms off (1 run); the first 3 cases under an LRU of 8 "
+          f"and a 1-MB pool bound: {tiny[0]} flushes, {tiny[1]} evictions; {fuzz_s:.1f} s",
+          flush=True)
+    print(f"  sql_cases: {len(cases_)} cases, each run on, on, off, on, outputs equal: "
+          f"{not any(d[0] == 'sql_cases' for d in diffs)}", flush=True)
+    print(json.dumps({"phase": "programs_corpus", "statements": n_stmt,
+                      "sql_cases": len(cases_), "not_bit_equal": len(diffs),
+                      "launches": launches, "programs": rep,
+                      "seconds": round(time.perf_counter() - t_phase, 1), "card": card}),
+          flush=True)
+    for d in diffs[:20]:
+        print(f"  NOT BIT-EQUAL: {d}", flush=True)
+    if diffs:
+        raise AssertionError(f"phase programs: {len(diffs)} results differ with programs off")
+    if rep["replayed_launches"].get("dense_group_sums", 0) == 0:
+        raise AssertionError("phase programs: dense_group_sums never ran inside a replayed graph")
+    return launches
+
+
+def phase_programs_tpch(dev, card: str, db, results22: dict) -> dict:
+    """Phase 13, its second half, on phase 6's tables: the 22 TPC-H queries
+    at SF1 and a lineitem self-join, with programs on and SQLRS_TPU_FUSE=0.
+    After programs.clear(): a pass off (cold off), a pass on (cold on: every
+    signature new, run eagerly), a pass on (captures); then timed passes
+    off, on, on, off; every run's results bit-equal to the first off run,
+    and to phase 6's rows. Then one profiled run of each query on and off:
+    launches (kernel launches as phase 7 counts them, plus graph
+    launches), memory copies, syncs, device ms; peak memory, graphs, pool
+    bytes; the reference's dispatches beside each query's launches.
+    Kernel 1 must have run from a replayed graph. Returns each kernel's
+    launches in the phase."""
+    from sqlrs_tpu_torch.utils import programs
+
+    t_phase = time.perf_counter()
+    queries = {qn: tpch_statements(qn) for qn in range(1, 23)}
+    queries["self_join"] = [SELF_JOIN_SQL]
+    _zero_kernel_counts()
+    programs.clear()
+    programs.reset_stats()
+    torch.cuda.empty_cache()
+    want, ms = {}, {k: {} for k in ("cold_off", "cold_on", "capture", "off", "on")}
+    peak = {"on": {}, "off": {}}
+    diffs = []
+
+    def one_pass(label, on, record):
+        for qn, stmts in queries.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            with fuse(on):
+                bits, t = run_bits(db, stmts)
+            if qn not in want:
+                want[qn] = bits
+            elif bits != want[qn]:
+                diffs.append((qn, label))
+            ms[record].setdefault(qn, []).append(t)
+            if record in ("on", "off"):
+                peak[record][qn] = max(peak[record].get(qn, 0.0),
+                                       torch.cuda.max_memory_allocated(dev) / 1e9)
+
+    one_pass("cold off", False, "cold_off")
+    one_pass("cold on", True, "cold_on")
+    one_pass("capture", True, "capture")
+    for label, on in (("off 1", False), ("on 1", True), ("on 2", True), ("off 2", False)):
+        one_pass(label, on, "on" if on else "off")
+    # phase 6's rows: the same answers as every run before this phase
+    for qn in range(1, 23):
+        with fuse(True):
+            rows, _ = tpch_run(db, qn)
+        if rows != results22[qn]["rows"]:
+            diffs.append((qn, "phase 6's rows"))
+    h0 = programs.stats.replayed_launches.get("grouped_histogram", 0)
+    prof = {"on": {}, "off": {}}
+    for qn, stmts in queries.items():
+        for key, on in (("on", True), ("off", False)):
+            with fuse(on):
+                prof[key][qn] = profiled_counts(lambda: [db.run(s) for s in stmts])
+    launches = _kernel_counts()
+    rep = _program_report()
+    reserved = torch.cuda.memory_reserved(dev) / 1e9
+    for qn in queries:
+        p_on, p_off = prof["on"][qn], prof["off"][qn]
+        print(f"  {'Q' + str(qn) if qn != 'self_join' else qn}: launches {p_on['launches']} on "
+              f"({p_on['graphs']} graphs) / {p_off['launches']} off, reference "
+              f"{REF_DISPATCHES.get(qn, '-')} dispatches; memcpy {p_on['memcpy']} / "
+              f"{p_off['memcpy']}; syncs {p_on['syncs']} / {p_off['syncs']}; device "
+              f"{p_on['device_ms']:.3f} / {p_off['device_ms']:.3f} ms; warm "
+              f"{float(np.median(ms['on'][qn])):.1f} / {float(np.median(ms['off'][qn])):.1f} ms; "
+              f"cold {ms['cold_on'][qn][0]:.1f} / {ms['cold_off'][qn][0]:.1f} ms, capture run "
+              f"{ms['capture'][qn][0]:.1f} ms; peak {peak['on'][qn]:.2f} / "
+              f"{peak['off'][qn]:.2f} GB", flush=True)
+
+    def total(d, key):
+        return sum(d[qn][key] for qn in range(1, 23))
+
+    summary = {
+        "phase": "programs_tpch",
+        "launches": {"on": total(prof["on"], "launches"), "off": total(prof["off"], "launches")},
+        "graph_launches_on": total(prof["on"], "graphs"),
+        "kernel_launches": {"on": total(prof["on"], "kernels"), "off": total(prof["off"], "kernels")},
+        "memcpy": {"on": total(prof["on"], "memcpy"), "off": total(prof["off"], "memcpy")},
+        "memset": {"on": total(prof["on"], "memset"), "off": total(prof["off"], "memset")},
+        "syncs": {"on": total(prof["on"], "syncs"), "off": total(prof["off"], "syncs")},
+        "device_ms": {"on": round(total(prof["on"], "device_ms"), 3),
+                      "off": round(total(prof["off"], "device_ms"), 3)},
+        "warm_ms_sum": {k: round(sum(float(np.median(ms[k][qn])) for qn in range(1, 23)), 1)
+                        for k in ("on", "off")},
+        "cold_ms_sum": {"on": round(sum(ms["cold_on"][qn][0] for qn in range(1, 23)), 1),
+                        "off": round(sum(ms["cold_off"][qn][0] for qn in range(1, 23)), 1),
+                        "capture_run": round(sum(ms["capture"][qn][0] for qn in range(1, 23)), 1)},
+        "peak_gb_max": {k: round(max(peak[k][qn] for qn in range(1, 23)), 2) for k in ("on", "off")},
+        "reserved_gb": round(reserved, 2),
+        "reference_dispatches": sum(REF_DISPATCHES.values()),
+        "launch_target": LAUNCH_TARGET,
+        "programs": rep, "not_bit_equal": len(diffs), "kernels": launches,
+        "seconds": round(time.perf_counter() - t_phase, 1), "card": card,
+    }
+    print(json.dumps(summary), flush=True)
+    for d in diffs[:20]:
+        print(f"  NOT BIT-EQUAL: {d}", flush=True)
+    if diffs:
+        raise AssertionError(f"phase programs: {len(diffs)} runs differ with programs on and off")
+    if rep["replayed_launches"].get("grouped_histogram", 0) <= h0 or h0 == 0:
+        raise AssertionError("phase programs: grouped_histogram never ran inside a replayed graph")
     return launches
 
 
@@ -2811,6 +3175,8 @@ def main() -> int:
     launches_fuzz = phase_fuzz(dev, card)
     # phase 12 too: its cases' LIKE patterns meet the same small dictionary
     launches_cases = phase_sql_cases(dev, card)
+    # phase 13's corpus half, for the same reason
+    launches_prog_corpus = phase_programs_corpus(dev, card)
     launches22, db22, slowest, tables22, results22, cpu_ops22 = phase_tpch22(dev, card)
     phase_profile(card, f"TPC-H Q{slowest} at SF {TPCH22_SF} (the slowest warm query)",
                   lambda: [db22.run(stmt) for stmt in tpch_statements(slowest)], runs=3)
@@ -2818,6 +3184,7 @@ def main() -> int:
                   lambda: [db22.run(stmt) for qn in range(1, 23)
                            for stmt in tpch_statements(qn)], runs=1,
                   functions=PROFILED_FUNCTIONS)
+    launches_prog_tpch = phase_programs_tpch(dev, card, db22, results22)
     import tempfile
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -2848,7 +3215,7 @@ def main() -> int:
     launches_mp = phase_multiprocess(dev, card, tmp.name, tables_path, results22, results_dist)
     tmp.cleanup()
     for extra in (launches22, launches_dist, launches_b, launches_mp, launches_fuzz,
-                  launches_cases):
+                  launches_cases, launches_prog_corpus, launches_prog_tpch):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
             launches[name] += extra[name]

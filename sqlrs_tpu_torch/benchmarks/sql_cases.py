@@ -1280,6 +1280,12 @@ def storage_cases() -> list:
     ]
 
 
+def is_program_error(e: BaseException) -> bool:
+    """A failed capture or replay of the port's programs (its ProgramError,
+    named so that this module imports neither package): never an outcome."""
+    return any(c.__name__ == "ProgramError" for c in type(e).__mro__)
+
+
 def all_cases() -> list:
     """Every case, in the order of the sources above."""
     return (subquery_cases() + extended_cases() + fused_route_cases() + session_cases()
@@ -1536,6 +1542,8 @@ class _Run:
                 try:
                     got = self.execute(step)
                 except Exception as e:  # the step's stated error class, and no other
+                    if is_program_error(e):
+                        raise  # a failed capture or replay is never an expected error
                     if type(e).__name__ != step.error:
                         raise CaseFailure(f"{where}: raised {type(e).__name__} ({e}), "
                                           f"want {step.error}") from e

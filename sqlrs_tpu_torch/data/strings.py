@@ -136,6 +136,7 @@ class StringDictionary:
         self._ranks: np.ndarray | None = None  # lex rank per code, cached
         self._ranks_dev: dict = {}  # torch.device -> rank tensor
         self._match_tables: dict = {}  # key -> _MatchTable
+        self._match_dev: dict = {}  # (key, torch.device) -> table tensor
         # the native interner's hash map is global to its library (one
         # bytes->code map, like this dictionary's contract); only the
         # designated global instance may bind to it, and only while still
@@ -319,9 +320,45 @@ class StringDictionary:
         dev = torch.device(device)
         cached = self._ranks_dev.get(dev)
         if cached is None or cached.shape[0] != len(r):
+            from sqlrs_tpu_torch.utils.programs import mark_resident
+
             cached = torch.from_numpy(r).to(dev)
+            mark_resident(cached)
             self._ranks_dev[dev] = cached
         return cached
+
+    def has_device_ranks(self, device) -> bool:
+        """Whether ranks_device(device) would upload nothing."""
+        import torch
+
+        cached = self._ranks_dev.get(torch.device(device))
+        return cached is not None and cached.shape[0] == len(self)
+
+    def match_table_device(self, key, fn, dtype, device):
+        """match_table(key, fn, dtype) as a tensor on `device`, cached per
+        (key, device) and refreshed when the table grows: a repeated LIKE or
+        substring uploads nothing, and the cached tensor is resident (a
+        program reads it where it lies)."""
+        import torch
+
+        table = self.match_table(key, fn, dtype)
+        dev = torch.device(device)
+        cached = self._match_dev.get((key, dev))
+        if cached is None or cached.shape[0] != len(table):
+            from sqlrs_tpu_torch.utils.programs import mark_resident
+
+            cached = torch.tensor(np.ascontiguousarray(table), device=dev)
+            mark_resident(cached)
+            self._match_dev[(key, dev)] = cached
+        return cached
+
+    def has_device_table(self, key, device) -> bool:
+        """Whether match_table_device(key, ...) would do no host work: its
+        table covers the whole dictionary and is on the device."""
+        import torch
+
+        cached = self._match_dev.get((key, torch.device(device)))
+        return cached is not None and cached.shape[0] == len(self)
 
     def match_table(self, key, fn, dtype=np.bool_) -> np.ndarray:
         """Memoized per-code table for a string predicate/transform (LIKE

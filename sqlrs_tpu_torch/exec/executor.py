@@ -13,8 +13,11 @@ ops/mxu_grouped.py, the sorted-run GROUP BY of ops/grouped_agg.py and the
 legacy DISTINCT path of ops/grouping.py), the joins (inner, outer, semi,
 anti, mark and cross, over ops/join.py), the fused star-rollup route
 (exec/fused_route.py) in front of ORDER BY and GROUP BY, and
-DDL/DML/explain. Each jitted program of the reference is a plain function
-here. An operator that is not ported raises ExecutorError naming it.
+DDL/DML/explain. Each jitted program of the reference is a program here
+(utils/programs.py: one captured CUDA graph a signature on the card): the
+mark, semi-join, pair-compaction, outer- and cross-join, residual-join and
+ungrouped-aggregate programs below, and those of ops/. An operator that is
+not ported raises ExecutorError naming it.
 """
 
 from __future__ import annotations
@@ -38,10 +41,11 @@ from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.exec.expression_executor import (
     execute_expr,
     execute_exprs_fused,
+    execute_predicate,
     execute_scalar,
 )
 from sqlrs_tpu_torch.ops import elementwise as ew
-from sqlrs_tpu_torch.ops.fused import compact_indices, mask_count
+from sqlrs_tpu_torch.ops.fused import compact_gather_arrays, compact_indices, mask_count
 from sqlrs_tpu_torch.ops.grouping import (
     dedup_mask,
     group_ids,
@@ -56,6 +60,8 @@ from sqlrs_tpu_torch.ops.sort import orderable_key, sort_rows
 from sqlrs_tpu_torch.plan import physical as P
 from sqlrs_tpu_torch.storage.memory import DataTable, null_column
 from sqlrs_tpu_torch.types import LogicalType, numpy_dtype_for
+from sqlrs_tpu_torch.utils import programs
+from sqlrs_tpu_torch.utils.programs import program
 
 _INT64_MAX = 2**63 - 1
 
@@ -122,17 +128,14 @@ class Executor:
         return DeviceBatch(_schema(op), cols, child.num_rows, self.device)
 
     def _exec_Filter(self, op: P.PhysicalFilter) -> DeviceBatch:
-        # one compaction for every size: the kept row indices, then one
-        # gather per column. The reference's three branches (host indices
-        # for small batches; a payload-carrying or a permutation flag sort
-        # for large narrow or wide ones) all produce these rows in this
-        # order; they differ only in what is fast on a TPU.
+        # one compaction for every size: the predicate and its count, then
+        # every column compacted in one program. The reference's three
+        # branches (host indices for small batches; a payload-carrying or a
+        # permutation flag sort for large narrow or wide ones) all produce
+        # these rows in this order; they differ only in what is fast on a
+        # TPU.
         child = self.execute(op.children[0])
-        (keep,) = execute_exprs_fused([op.predicate], child)
-        idx = ew.selection_to_indices(keep)
-        if idx.shape[0] == child.num_rows:
-            return child
-        return child.take(idx)
+        return _filter_batch(child, op.predicate)
 
     def _exec_Limit(self, op: P.PhysicalLimit) -> DeviceBatch:
         out = self._streaming_limit(op)
@@ -176,8 +179,7 @@ class Executor:
             exhausted = piece.num_rows < chunk
             for c in reversed(chain):
                 if isinstance(c, P.PhysicalFilter):
-                    (keep,) = execute_exprs_fused([c.predicate], piece)
-                    piece = piece.take(ew.selection_to_indices(keep))
+                    piece = _filter_batch(piece, c.predicate)
                 else:
                     cols = execute_exprs_fused(c.exprs, piece)
                     piece = DeviceBatch(_schema(c), cols, piece.num_rows, self.device)
@@ -448,11 +450,8 @@ class Executor:
             """Every LIVE left row survives (anti over empty right, etc.)."""
             if left_alive is None:
                 return DeviceBatch(out_schema, _project(left.columns), nl, dev)
-            keep = torch.logical_and(left_alive[0], left_alive[1])
-            out = left.compact(
-                Column(LogicalType.BOOLEAN, keep, torch.ones_like(keep)),
-                int(keep.sum()),
-            )
+            keep = Column(LogicalType.BOOLEAN, left_alive[0], left_alive[1])
+            out = left.compact(keep, mask_count(keep.data, keep.valid))
             return DeviceBatch(out_schema, _project(out.columns), out.num_rows, dev)
 
         def _emit_none():
@@ -533,7 +532,8 @@ class Executor:
                 null_guard=bool(op.null_aware and op.join_type == "anti"),
                 alive=left_alive,
             )
-        keep_col = Column(LogicalType.BOOLEAN, keep_mask, torch.ones_like(keep_mask))
+        # the mask as data and validity (a AND a = a): nothing to fill
+        keep_col = Column(LogicalType.BOOLEAN, keep_mask, keep_mask)
         out = left.compact(keep_col, int(n_keep))
         return DeviceBatch(out_schema, _project(out.columns), out.num_rows, dev)
 
@@ -658,7 +658,7 @@ class Executor:
             right, r_alive = self.execute(op.children[1]), None
         left_keys = execute_exprs_fused([l for l, _ in op.on], left)
         right_keys = execute_exprs_fused([r for _, r in op.on], right)
-        from sqlrs_tpu_torch.ops.join import expand_pairs, pair_ranges
+        from sqlrs_tpu_torch.ops.join import expand_gather, expand_pairs, pair_ranges
 
         pr = pair_ranges(left_keys, right_keys, l_alive, r_alive)
         total = pr[3] if pr is not None else 0
@@ -679,17 +679,25 @@ class Executor:
             l_idx_u, r_idx_u, kd, cnt = _residual_fused_phase1(
                 op.filter, left, right, pr
             )
-            sel = compact_indices(kd, kd, int(cnt))
-            l_idx, r_idx = l_idx_u[sel], r_idx_u[sel]
+            cnt = int(cnt)
+            if op.join_type == "inner":
+                # compaction and the output gather in one program
+                return _merge_rows(_schema(op), left, right, l_idx_u, r_idx_u,
+                                   keep=(kd, cnt))
+            l_idx, r_idx = compact_gather_arrays(kd, kd, (l_idx_u, r_idx_u), cnt)
+        elif pr is not None and op.join_type == "inner":
+            if total == 0:
+                l_idx = r_idx = torch.zeros(0, dtype=torch.int64, device=self.device)
+                return _merge_rows(_schema(op), left, right, l_idx, r_idx)
+            # phase B and the output gather in one program
+            lcols, rcols = expand_gather(pr, left.columns, right.columns)
+            return DeviceBatch(_schema(op), lcols + rcols, total, self.device)
         elif pr is not None:
             l_idx, r_idx = expand_pairs(*pr)
         else:
             l_idx = r_idx = torch.zeros(0, dtype=torch.int64, device=self.device)
         if op.join_type in ("left", "right", "full"):
-            l_idx, r_idx = _outer_join_indices(
-                l_idx, r_idx, left.num_rows, right.num_rows, op.join_type
-            )
-            return _merge_rows(_schema(op), left, right, l_idx, r_idx, nullable=True)
+            return _outer_join(_schema(op), left, right, l_idx, r_idx, op.join_type)
         return _merge_rows(_schema(op), left, right, l_idx, r_idx)
 
     def _residual_pairs_chunked(self, op, left, right, pr, budget: int):
@@ -745,10 +753,9 @@ class Executor:
         left = self.execute(op.children[0])
         right = self.execute(op.children[1])
         nl, nr = left.num_rows, right.num_rows
-        # left-major emission (reference src/executor/join/cross_join.rs:25)
-        l_idx = torch.arange(nl, dtype=torch.int64, device=self.device).repeat_interleave(nr)
-        r_idx = torch.arange(nr, dtype=torch.int64, device=self.device).repeat(nl)
-        return _merge_rows(_schema(op), left, right, l_idx, r_idx)
+        # left-major emission (reference src/executor/join/cross_join.rs:25),
+        # the pair indices and the gather in one program (_cross_join_jit)
+        return _merge_rows(_schema(op), left, right, None, None, cross=(nl, nr))
 
     # ---- DDL / DML ---------------------------------------------------------------
 
@@ -874,7 +881,9 @@ def _reduce_one_ungrouped(a, col, n: int, alive, device) -> Column:
                 codes = torch.full((1,), -1, dtype=col.data.dtype, device=device)
                 return Column(LogicalType.VARCHAR, codes, has)
             i = torch.argmin(k) if name == "min" else torch.argmax(k)
-            return Column(LogicalType.VARCHAR, col.data[i].reshape(1), has)
+            # a 1-element index tensor gathers on the device (a 0-dim one
+            # would be read on the host as a Python index)
+            return Column(LogicalType.VARCHAR, col.data[i.reshape(1)], has)
         if col.type == LogicalType.UBIGINT:  # min/max in unsigned order
             key = ubigint_key(col.data)
             sent = _INT64_MAX if name == "min" else -_INT64_MAX - 1
@@ -899,30 +908,55 @@ def _reduce_one_ungrouped(a, col, n: int, alive, device) -> Column:
     raise ExecutorError(f"unknown aggregate {name}")
 
 
+def _filter_batch(batch: DeviceBatch, predicate) -> DeviceBatch:
+    """The rows of `batch` where `predicate` holds, in order: the predicate
+    program with its count (one host read), then one compaction program."""
+    keep, cnt = execute_predicate(predicate, batch)
+    if cnt == batch.num_rows:
+        return batch
+    return batch.compact(keep, cnt)
+
+
 def _reduce_ungrouped_fused(aggs, slots, arg_cols, n: int, alive, device):
-    """All ungrouped aggregates of a SimpleAgg. The JAX package compiles
-    them into one program (with its own jit cache); here they are the plain
-    eager reductions."""
-    if isinstance(alive, tuple):  # raw (keep_data, keep_valid) pair
-        alive = torch.logical_and(alive[0], alive[1])
-    return [
-        _reduce_one_ungrouped(
-            a, arg_cols[s] if s is not None else None, n, alive, device
+    """All ungrouped aggregates of a SimpleAgg as one program (the
+    reference's `_UNGROUPED_FUSED_CACHE` program, exec/executor.py:1188),
+    keyed by the aggregates' reprs. A VARCHAR min/max whose rank table is
+    not on the device yet runs eagerly (the table builds on the host)."""
+    from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
+
+    types = tuple(c.type for c in arg_cols)
+
+    def body(datas, valids, alive):
+        if isinstance(alive, tuple):  # raw (keep_data, keep_valid) pair
+            alive = torch.logical_and(alive[0], alive[1])
+        cols = [Column(t, d, v) for t, d, v in zip(types, datas, valids)]
+        outs = [
+            _reduce_one_ungrouped(a, cols[s] if s is not None else None, n, alive, device)
+            for a, s in zip(aggs, slots)
+        ]
+        return tuple((c.type, c.data, c.valid) for c in outs)
+
+    args = (tuple(c.data for c in arg_cols), tuple(c.valid for c in arg_cols), alive)
+    if LogicalType.VARCHAR in types and not GLOBAL_STRINGS.has_device_ranks(device):
+        programs.route_eagerly("rank table build")
+        out = body(*args)
+    else:
+        out = programs.run(
+            "exec.executor._reduce_ungrouped_fused", body, args,
+            (tuple(repr(a) for a in aggs), tuple(slots), types, n),
         )
-        for a, s in zip(aggs, slots)
-    ]
+    return [Column(t, d, v) for t, d, v in out]
 
 
 # ---- join helpers ---------------------------------------------------------
-# Plain functions of tensors on the batch's device. The JAX package fuses
-# the expand/compact/gather steps into jitted programs to save dispatches
-# (_gather_pairs_jit, _compact_pairs_jit, _compact_gather_pairs_jit,
-# _unmatched_masks_jit, _outer_join_tail_jit, _cross_join_jit); eager code
-# has no dispatch to save, so here they are ops/join.expand_pairs,
-# ops/fused.compact_indices, _outer_join_indices and the gathers of
-# _merge_rows.
+# The reference's join programs (exec/executor.py:958-1420), each a program
+# here: _ne_mark, _semi_keep, _semi_keep_corr, the residual join's
+# _expand_pair_chunk and _residual_fused_phase1, the pair gathers
+# (_gather_pairs_jit, _compact_gather_pairs_jit), the outer join's
+# _unmatched_masks and _outer_join_tail, and _cross_join.
 
 
+@program
 def _expand_pair_chunk(starts_p, counts_p, order, r0: int, nrows: int, W: int, B2: int):
     """One bounded chunk of pair expansion: W probe rows in, B2 padded pairs
     out, with a validity mask. `starts_p`/`counts_p` are W-padded so the
@@ -977,18 +1011,49 @@ def _residual_subplan(filter_expr, left, right):
 
 
 def _residual_fused_phase1(filter_expr, left, right, pr):
-    """Pair expansion + residual evaluation + survivor count: returns
-    (l_idx, r_idx, keep, count) with the count a device scalar. Only the
-    columns the filter references are gathered."""
+    """Pair expansion + residual evaluation + survivor count in one program
+    (the reference's `_RESIDUAL_FUSED_CACHE` phase1): returns (l_idx,
+    r_idx, keep, count) with the count a device scalar. Only the columns
+    the filter references are gathered. A filter that would read the host
+    (exec/expression_executor._host_work) runs eagerly."""
+    from sqlrs_tpu_torch.exec.expression_executor import _host_work
     from sqlrs_tpu_torch.ops.join import _expand_body
 
     starts, counts, order_arr, total = pr
-    l_idx, r_idx = _expand_body(starts, counts, order_arr, total)
-    keep = _eval_residual_on_pairs(filter_expr, left, right, l_idx, r_idx)
-    kd = torch.logical_and(keep.data, keep.valid)
-    return l_idx, r_idx, kd, kd.sum()
+    expr2, sub_fields, l_pick, r_pick = _residual_subplan(filter_expr, left, right)
+    n_l = len(l_pick)
+
+    def body(starts, counts, order_arr, l_datas, l_valids, r_datas, r_valids):
+        l_idx, r_idx = _expand_body(starts, counts, order_arr, total)
+        cols = [
+            Column(f.type, d[i], v[i])
+            for f, d, v, i in zip(
+                sub_fields,
+                l_datas + r_datas,
+                l_valids + r_valids,
+                [l_idx] * n_l + [r_idx] * (len(sub_fields) - n_l),
+            )
+        ]
+        keep = execute_expr(expr2, DeviceBatch(Schema(sub_fields), cols, total, l_idx.device))
+        kd = torch.logical_and(keep.data, keep.valid)
+        return l_idx, r_idx, kd, kd.sum()
+
+    args = (
+        starts, counts, order_arr,
+        tuple(left.columns[i].data for i in l_pick), tuple(left.columns[i].valid for i in l_pick),
+        tuple(right.columns[i].data for i in r_pick), tuple(right.columns[i].valid for i in r_pick),
+    )
+    why = _host_work([expr2], left.device)
+    if why is not None:
+        programs.route_eagerly(why)
+        return body(*args)
+    return programs.run(
+        "exec.executor._residual_fused_phase1", body, args,
+        (repr(expr2), tuple(f.type for f in sub_fields), n_l, total),
+    )
 
 
+@program
 def _ne_mark(counts_all, counts_eq, a_valid):
     """Count-based `a <> b` mark: a key match with a DIFFERENT b exists."""
     return a_valid & (counts_all - counts_eq > 0)
@@ -999,6 +1064,7 @@ def _as_bool_mark(matched):
     return matched if matched.dtype == torch.bool else matched > 0
 
 
+@program
 def _semi_keep(matched, x_valid, anti: bool, null_guard: bool, alive=None):
     """Semi/anti keep mask + survivor count. `alive` is a fused-Filter
     (keep_data, keep_valid) pair from the LEFT child: dead rows drop here,
@@ -1012,6 +1078,7 @@ def _semi_keep(matched, x_valid, anti: bool, null_guard: bool, alive=None):
     return keep, keep.sum()
 
 
+@program
 def _semi_keep_corr(matched, x_valid, nonempty, has_null):
     """Correlated null-aware NOT IN keep mask + count (anti only)."""
     unknown = _as_bool_mark(nonempty) & (
@@ -1021,27 +1088,116 @@ def _semi_keep_corr(matched, x_valid, nonempty, has_null):
     return keep, keep.sum()
 
 
-def _outer_join_indices(l_idx, r_idx, nl: int, nr: int, jt: str):
+@program
+def _unmatched_masks(l_idx, r_idx, nl: int, nr: int, jt: str):
+    """Per side of an outer join, the rows no pair matched, and both counts
+    in one vector (fetched together)."""
+    dev = l_idx.device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    um_l = um_r = None
+    n_l = n_r = zero
+    if jt in ("right", "full"):
+        um_r = torch.ones(nr, dtype=torch.bool, device=dev).index_fill_(0, r_idx, False)
+        n_r = um_r.sum()
+    if jt in ("left", "full"):
+        um_l = torch.ones(nl, dtype=torch.bool, device=dev).index_fill_(0, l_idx, False)
+        n_l = um_l.sum()
+    return um_l, um_r, torch.stack([n_l, n_r])
+
+
+def _outer_pair_indices(l_idx, r_idx, um_l, um_r, n_um_l: int, n_um_r: int, jt: str):
     """The pair indices of a left/right/full join, -1 on a NULL side:
     unmatched right rows interleave at their probe positions (stable sort
     by probe row — reference hash_join.rs:73-121), unmatched left rows
-    append at the end (hash_join.rs:294-322). One host sync per side, for
-    its unmatched count."""
-    dev = l_idx.device
+    append at the end (hash_join.rs:294-322)."""
     all_l, all_r = l_idx, r_idx
     if jt in ("right", "full"):
-        um = torch.ones(nr, dtype=torch.bool, device=dev).index_fill_(0, r_idx, False)
-        um_r = compact_indices(um, um, int(um.sum()))
+        um_r = compact_indices(um_r, um_r, n_um_r)
         all_l = torch.cat([all_l, torch.full_like(um_r, -1)])
         all_r = torch.cat([all_r, um_r])
         o = torch.argsort(all_r, stable=True)
         all_r, all_l = all_r[o], all_l[o]
     if jt in ("left", "full"):
-        um = torch.ones(nl, dtype=torch.bool, device=dev).index_fill_(0, l_idx, False)
-        um_l = compact_indices(um, um, int(um.sum()))
+        um_l = compact_indices(um_l, um_l, n_um_l)
         all_l = torch.cat([all_l, um_l])
         all_r = torch.cat([all_r, torch.full_like(um_l, -1)])
     return all_l, all_r
+
+
+def _gather_side(datas, valids, fills, idx, nullable: bool, empty: bool):
+    """One side's output columns gathered by idx; with `nullable`, an index
+    of -1 is a NULL row (valid False and null_column's fill value), and an
+    empty side is all NULL rows (where the reference's gather from an empty
+    array fails)."""
+    if not nullable:
+        return tuple(d[idx] for d in datas), tuple(v[idx] for v in valids)
+    if empty:
+        return (
+            tuple(torch.full(idx.shape, f, dtype=d.dtype, device=idx.device)
+                  for d, f in zip(datas, fills)),
+            tuple(torch.zeros(idx.shape, dtype=torch.bool, device=idx.device) for _ in valids),
+        )
+    live = idx >= 0
+    i = torch.clamp(idx, min=0)
+    return (
+        tuple(torch.where(live, d[i], f) for d, f in zip(datas, fills)),
+        tuple(v[i] & live for v in valids),
+    )
+
+
+def _side_args(batch: DeviceBatch):
+    return (
+        tuple(c.data for c in batch.columns),
+        tuple(c.valid for c in batch.columns),
+    ), tuple(NULL_CODE if c.type == LogicalType.VARCHAR else 0 for c in batch.columns)
+
+
+@program
+def _gather_pairs(l_idx, r_idx, ld, lv, rd, rv, l_fills, r_fills, nullable: bool,
+                  l_empty: bool, r_empty: bool, keep, count, cross, dev):
+    """The join output gather (the reference's _gather_pairs_jit), with the
+    residual's compaction first when `keep` is given
+    (_compact_gather_pairs_jit), or the cross join's left-major pairs when
+    `cross` = (nl, nr) is (_cross_join_jit)."""
+    if cross is not None:
+        nl, nr = cross
+        l_idx = torch.arange(nl, dtype=torch.int64, device=dev).repeat_interleave(nr)
+        r_idx = torch.arange(nr, dtype=torch.int64, device=dev).repeat(nl)
+    if keep is not None:
+        sel = compact_indices(keep, keep, count)
+        l_idx, r_idx = l_idx[sel], r_idx[sel]
+    return (
+        _gather_side(ld, lv, l_fills, l_idx, nullable, l_empty),
+        _gather_side(rd, rv, r_fills, r_idx, nullable, r_empty),
+    )
+
+
+@program
+def _outer_join_tail(l_idx, r_idx, um_l, um_r, ld, lv, rd, rv, l_fills, r_fills,
+                     n_um_l: int, n_um_r: int, jt: str, l_empty: bool, r_empty: bool):
+    """The outer join's pair indices and output gather in one program (the
+    reference's _outer_join_tail_jit)."""
+    all_l, all_r = _outer_pair_indices(l_idx, r_idx, um_l, um_r, n_um_l, n_um_r, jt)
+    return (
+        _gather_side(ld, lv, l_fills, all_l, True, l_empty),
+        _gather_side(rd, rv, r_fills, all_r, True, r_empty),
+    )
+
+
+def _outer_join(schema, left: DeviceBatch, right: DeviceBatch, l_idx, r_idx,
+                jt: str) -> DeviceBatch:
+    """A left/right/full join's rows: the unmatched masks and their counts
+    (one program, one host read), then the tail program."""
+    um_l, um_r, cnt = _unmatched_masks(l_idx, r_idx, left.num_rows, right.num_rows, jt)
+    n_um_l, n_um_r = (int(x) for x in cnt.cpu().numpy())
+    (la, l_fills), (ra, r_fills) = _side_args(left), _side_args(right)
+    (ld, lv), (rd, rv) = _outer_join_tail(
+        l_idx, r_idx, um_l, um_r, *la, *ra, l_fills, r_fills,
+        n_um_l, n_um_r, jt, left.num_rows == 0, right.num_rows == 0,
+    )
+    cols = [Column(c.type, d, v) for c, d, v in zip(left.columns, ld, lv)]
+    cols += [Column(c.type, d, v) for c, d, v in zip(right.columns, rd, rv)]
+    return DeviceBatch(schema, cols, int(l_idx.shape[0]) + n_um_l + n_um_r, left.device)
 
 
 def _eval_residual_on_pairs(filter_expr, left, right, l_idx, r_idx):
@@ -1066,29 +1222,23 @@ def _eval_residual_on_pairs(filter_expr, left, right, l_idx, r_idx):
 
 
 def _merge_rows(schema, left: DeviceBatch, right: DeviceBatch, l_idx, r_idx,
-                nullable: bool = False) -> DeviceBatch:
-    """Gather (left_rows ++ right_rows) into the join output layout. With
-    `nullable`, an index of -1 is a NULL row on that side (valid False and
-    null_column's fill value); an outer join's empty side is all NULL rows
-    (where the reference's gather from an empty array fails)."""
-
-    def side(batch, idx):
-        if not nullable:
-            return [Column(c.type, c.data[idx], c.valid[idx]) for c in batch.columns]
-        out = []
-        for c in batch.columns:
-            fill = NULL_CODE if c.type == LogicalType.VARCHAR else 0
-            if batch.num_rows == 0:  # every row is NULL on an empty side
-                out.append(Column(
-                    c.type,
-                    torch.full(idx.shape, fill, dtype=c.data.dtype, device=idx.device),
-                    torch.zeros(idx.shape, dtype=torch.bool, device=idx.device),
-                ))
-                continue
-            live = idx >= 0
-            i = torch.clamp(idx, min=0)
-            out.append(Column(c.type, torch.where(live, c.data[i], fill), c.valid[i] & live))
-        return out
-
-    cols = side(left, l_idx) + side(right, r_idx)
-    return DeviceBatch(schema, cols, int(l_idx.shape[0]), left.device)
+                nullable: bool = False, keep=None, cross=None) -> DeviceBatch:
+    """Gather (left_rows ++ right_rows) into the join output layout, in one
+    program (_gather_pairs). With `nullable`, an index of -1 is a NULL row
+    on that side; `keep` = (mask, count) compacts the pairs first; `cross`
+    = (nl, nr) makes the cross join's pairs."""
+    (la, l_fills), (ra, r_fills) = _side_args(left), _side_args(right)
+    kd, count = keep if keep is not None else (None, None)
+    (ld, lv), (rd, rv) = _gather_pairs(
+        l_idx, r_idx, *la, *ra, l_fills, r_fills, nullable,
+        left.num_rows == 0, right.num_rows == 0, kd, count, cross, left.device,
+    )
+    if count is not None:
+        n = count
+    elif cross is not None:
+        n = cross[0] * cross[1]
+    else:
+        n = int(l_idx.shape[0])
+    cols = [Column(c.type, d, v) for c, d, v in zip(left.columns, ld, lv)]
+    cols += [Column(c.type, d, v) for c, d, v in zip(right.columns, rd, rv)]
+    return DeviceBatch(schema, cols, n, left.device)

@@ -31,7 +31,10 @@ cache, so the general path scans each of them once.
 
 Route names logged in `db.last_fused_routes` are the reference's, letter
 for letter. The reference's host fetches are kept, and no others: the stats
-vector, the composite-key meta, and the surviving group count.
+vector, the composite-key meta, and the surviving group count. Each of its
+jitted steps is a program here (utils/programs.py): the stats, the key
+combination, each routed kernel (kernel 2, `dense_group_sums`, runs inside
+the `_routed_kernel_mxu` graph), the compaction and the finalize.
 """
 
 from __future__ import annotations
@@ -53,10 +56,12 @@ from sqlrs_tpu_torch.ops import pipelines
 from sqlrs_tpu_torch.ops.mxu_agg import mxu_eligible, mxu_groupby_dense
 from sqlrs_tpu_torch.plan import physical as P
 from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils.programs import program
 
 _INT64_MAX = 2**63 - 1
 
 
+@program
 def _route_stats(dim_keys, dim_valid, fact_keys, fact_valid, datas, valids):
     """Every dynamic eligibility check, fetched as ONE small vector:
 
@@ -119,6 +124,7 @@ def _route_stats(dim_keys, dim_valid, fact_keys, fact_valid, datas, valids):
     return ks, meta
 
 
+@program
 def _combine_keys(f1, f1v, f2, f2v, d1, d1v, d2, d2v):
     """Fold a two-key equi join into one combined int key:
 
@@ -174,6 +180,7 @@ def _mask_payloads(pairs, packs, scales=None):
     return tuple(out)
 
 
+@program
 def _routed_kernel(fkeys, fvalid, fvals, fvals_valid, dim_sorted, miss_key: int,
                    n_groups: int, val_bits: int, pack32: bool, dense: bool,
                    with_minmax: bool, with_distinct: bool = False,
@@ -197,6 +204,7 @@ def _routed_kernel(fkeys, fvalid, fvals, fvals_valid, dim_sorted, miss_key: int,
     )
 
 
+@program
 def _routed_kernel_tv(fkeys, fvalid, fvals, fvals_valid, dim_sorted,
                       miss_key: int, n_groups: int, pack32: bool, dense: bool,
                       extra_pairs=(), extra_packs=(), extra_scales=(),
@@ -225,6 +233,7 @@ def _routed_kernel_tv(fkeys, fvalid, fvals, fvals_valid, dim_sorted,
     )
 
 
+@program
 def _routed_kernel_mxu(fkeys, fvalid, fvals, key_min: int, n_groups: int,
                        val_bits: int):
     """Pure sum+count rollup over a DENSE dim domain: the dense-group kernel
@@ -234,6 +243,7 @@ def _routed_kernel_mxu(fkeys, fvalid, fvals, key_min: int, n_groups: int,
                              valid=fvalid)
 
 
+@program
 def _routed_kernel_firstapp(fkeys, fvalid, pairs, dim_sorted, miss_key: int,
                             n_groups: int, rid_bits: int, dense: bool,
                             packs=(), scales=()):
@@ -245,6 +255,7 @@ def _routed_kernel_firstapp(fkeys, fvalid, pairs, dim_sorted, miss_key: int,
     )
 
 
+@program
 def _compact_nonempty(dim_sorted, arrays):
     """Drop zero-count groups keeping sorted order: one stable argsort by
     the drop flag; counts must be arrays[1]."""
@@ -253,6 +264,7 @@ def _compact_nonempty(dim_sorted, arrays):
     return dim_sorted[order], tuple(a[order] for a in arrays), alive.sum()
 
 
+@program
 def _finalize(arrays, n_out: int, spec, reorder: bool = False,
               order_ix: int = -1, reverse: bool = False, fscales=None,
               fdivs=None):
@@ -283,7 +295,11 @@ def _finalize(arrays, n_out: int, spec, reorder: bool = False,
     if fscales is None:
         fscales = (-1,) * len(spec)
     if fdivs is None:
-        fdivs = (None,) * len(spec)
+        # fills on the device: no host-to-device copy, so no sync
+        fdivs = tuple(
+            torch.full((), 10.0 ** f if f >= 0 else 1.0, dtype=torch.float64, device=dev)
+            for f in fscales
+        )
     for (op, ai, bi, dt, vop, vai), fsc, fdv in zip(spec, fscales, fdivs):
         if op == "slice":
             src = take(arrays[ai])
@@ -890,11 +906,6 @@ def _try_route(executor, op, agg, ordered: bool, reverse: bool = False,
         fin_arrays, n_out, tuple(spec),
         reorder=reorder, order_ix=order_ix, reverse=reverse,
         fscales=tuple(fscales_l),
-        fdivs=tuple(
-            # a fill on the device: no host-to-device copy, so no sync
-            torch.full((), 10.0 ** f if f >= 0 else 1.0, dtype=torch.float64, device=dev)
-            for f in fscales_l
-        ),
     )
     cols = [Column(t, flat[2 * i], flat[2 * i + 1]) for i, t in enumerate(col_types)]
     db = getattr(executor, "db", None)

@@ -265,8 +265,10 @@ def _days_from_civil_vec(y, m, d):
 
 
 def _last_day_of_month_vec(y, m):
-    thirty_one = torch.isin(m, torch.tensor([1, 3, 5, 7, 8, 10, 12], device=m.device))
-    thirty = torch.isin(m, torch.tensor([4, 6, 9, 11], device=m.device))
+    # months of 31 days are the odd ones to July and the even ones from
+    # August (no host-built month table: nothing to upload)
+    thirty_one = torch.where(m <= 7, m % 2 == 1, m % 2 == 0)
+    thirty = torch.logical_not(thirty_one) & (m != 2)
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     feb = torch.where(leap, 29, 28)
     return torch.where(thirty_one, 31, torch.where(thirty, 30, feb))
@@ -295,11 +297,23 @@ def date_add_interval(dates: Column, interval: Interval, sign: int) -> Column:
 # ---- LIKE ---------------------------------------------------------------------
 
 
+def like_key(pattern: str):
+    """The dictionary's memo key of a LIKE pattern's match table."""
+    return ("like", pattern)
+
+
+def substring_key(start: int, length=None):
+    """The dictionary's memo key of a substring's code map."""
+    s0 = max(start - 1, 0)
+    return ("substr", s0, None if length is None else s0 + max(int(length), 0))
+
+
 def like_match(col: Column, pattern: str, negated: bool = False) -> Column:
     """SQL LIKE on dictionary-encoded strings: the pattern is evaluated once
     per DISTINCT string (host regex over the dictionary), then mapped onto
     the column codes with a single device gather — O(D) pattern work for any
-    column length."""
+    column length. The match table lives on the device, cached per pattern
+    until the dictionary grows, so a repeated LIKE uploads nothing."""
     import re as _re
 
     from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
@@ -313,45 +327,41 @@ def like_match(col: Column, pattern: str, negated: bool = False) -> Column:
         + "$",
         _re.DOTALL,
     )
-    d = GLOBAL_STRINGS
+    dev = col.data.device
     # memoized per-pattern, extended incrementally on dictionary growth —
     # a repeated LIKE over a stable dictionary costs zero host regex work
-    match_table = d.match_table(
-        ("like", pattern), lambda s: bool(rx.match(s)), np.bool_
+    table = GLOBAL_STRINGS.match_table_device(
+        like_key(pattern), lambda s: bool(rx.match(s)), np.bool_, dev
     )
-    if negated:
-        match_table = ~match_table
-    dev = col.data.device
-    if len(match_table) == 0:
+    if table.shape[0] == 0:
         return Column(
             LogicalType.BOOLEAN,
             torch.zeros(len(col), dtype=torch.bool, device=dev),
             col.valid,
         )
-    table = host_to_device(match_table, dev)
-    codes = torch.clamp(col.data, 0, len(match_table) - 1).long()
-    return Column(LogicalType.BOOLEAN, table[codes], col.valid)
+    codes = torch.clamp(col.data, 0, table.shape[0] - 1).long()
+    hit = table[codes]
+    return Column(LogicalType.BOOLEAN, torch.logical_not(hit) if negated else hit, col.valid)
 
 
 def _code_map_column(col: Column, key, fn) -> Column:
     """Apply a string→string function as a code→code dictionary mapping:
     host work is O(new distinct strings) thanks to the memoized incremental
     match_table (interning any new results), then ONE device gather maps the
-    column — row count never touches the host."""
+    column — row count never touches the host. The map lives on the device
+    until the dictionary grows."""
     from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, NULL_CODE
 
     d = GLOBAL_STRINGS
-    n_before = len(d)
     dev = col.data.device
-    if n_before == 0:
+    if len(d) == 0:
         return Column(
             LogicalType.VARCHAR,
             torch.full((len(col),), NULL_CODE, dtype=torch.int32, device=dev),
             col.valid,
         )
-    table = d.match_table(key, lambda s: d.intern(fn(s)), np.int32)
-    jt = host_to_device(table, dev)
-    codes = torch.clamp(col.data, 0, n_before - 1).long()
+    jt = d.match_table_device(key, lambda s: d.intern(fn(s)), np.int32, dev)
+    codes = torch.clamp(col.data, 0, jt.shape[0] - 1).long()
     return Column(LogicalType.VARCHAR, jt[codes], col.valid)
 
 
@@ -359,11 +369,9 @@ def substring_column(col: Column, start: int, length=None) -> Column:
     """SQL substring (1-based start; negative/zero start clamps like
     Postgres' FROM clause on positive lengths is not fully modeled — TPC-H
     uses positive constants only)."""
-    s0 = max(start - 1, 0)
-    if length is None:
-        return _code_map_column(col, ("substr", s0, None), lambda s: s[s0:])
-    end = s0 + max(int(length), 0)
-    return _code_map_column(col, ("substr", s0, end), lambda s: s[s0:end])
+    key = substring_key(start, length)
+    _, s0, end = key
+    return _code_map_column(col, key, lambda s: s[s0:end])
 
 
 def concat_columns(left: Column, right: Column) -> Column:

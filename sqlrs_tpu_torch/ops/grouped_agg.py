@@ -18,8 +18,10 @@ permutation is the same, and each payload is gathered by it once. Small
 keys (VARCHAR ranks, BOOLEANs) pack into shared int64 operands as
 `_plan_key_layout` lays them out, which also cuts the number of passes.
 
-Each jitted phase of the reference is a plain function here; the one host
-sync between them is the run count, as there. Prefix sums go through
+Each jitted phase of the reference is a program here (utils/programs.py:
+one captured CUDA graph a signature on the card), with the reference's
+static arguments in the key; the one host sync between them is the run
+count, as there. Prefix sums go through
 ops/fused.prefix_sum, whose float association order is the same on every
 run (a 1-D float cumsum on CUDA is not).
 """
@@ -37,6 +39,7 @@ from sqlrs_tpu_torch.ops.fused import prefix_sum
 from sqlrs_tpu_torch.ops.hash_table import next_pow2
 from sqlrs_tpu_torch.ops.sort import _encode, _lex_argsort, key_kind
 from sqlrs_tpu_torch.types import LogicalType, numpy_dtype_for
+from sqlrs_tpu_torch.utils.programs import program
 
 _BLK = 128
 _INT32_MAX = 2**31 - 1
@@ -218,6 +221,7 @@ def _plan_key_layout(key_types, rank_bits: int, has_alive: bool):
     return layout, n_ops
 
 
+@program
 def _agg_phase1(
     kdatas,
     kvalids,
@@ -307,7 +311,7 @@ def _agg_phase1(
     perm = _lex_argsort(sort_keys)
     out = [k[perm] for k in sort_keys] + [perm] + [p[perm] for p in payloads]
     new_run = torch.zeros(n, dtype=torch.bool, device=dev)
-    new_run[0] = True
+    new_run[:1].fill_(True)
     lo = 1 if has_alive else 0  # skip the dead flag for boundary detection
     for arr in out[lo:n_group_ops]:
         new_run[1:] |= arr[1:] != arr[:-1]
@@ -330,6 +334,7 @@ def _agg_phase1(
     return out, new_run, new_pair, rid, n_runs
 
 
+@program
 def _agg_phase2(
     out, new_run, new_pair, rid, n_runs, num_keys: int, spec, r_cap: int
 ):

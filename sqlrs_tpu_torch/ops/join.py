@@ -21,10 +21,14 @@ Two phases split at the single pair-count host sync:
   `torch.repeat_interleave(..., output_size=total)`, which needs no sync
   because the total is already on the host.
 
-Each jitted program of the reference is a plain function here: its
-`_pairs_phase_b` is `_expand_body` itself, and `expand_gather_pairs` (phase
-B fused with the output gather, to save a dispatch) is `expand_pairs`
-followed by the executor's gather.
+Each jitted program of the reference is a program here (utils/programs.py):
+phase A with the key encodings (`_phase_a_prog`, which also applies the
+two-key packing), phase B (`_expand_prog`, the reference's
+`_pairs_phase_b`), phase B fused with the output gather (`expand_gather`,
+the reference's `_expand_gather_jit`) and the packing's stats
+(`_pack2_stats_prog`). The pair count and the stats are fetched between
+programs, as there. `_pairs_phase_a` stays a plain function of encoded key
+operands for the sharded engine.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from __future__ import annotations
 import torch
 
 from sqlrs_tpu_torch.data import Column
-from sqlrs_tpu_torch.ops.sort import _lex_argsort, orderable_key
+from sqlrs_tpu_torch.ops.sort import _encode, _lex_argsort, _rank_table_for, key_kind
+from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils.programs import program
 
 _INT64_MAX = 2**63 - 1
 
@@ -71,7 +77,7 @@ def _pairs_phase_a(l_ops, r_ops, num_keys: int, l_alive=None, r_alive=None):
     pos = _lex_argsort(ops)
     out = [o[pos] for o in ops]
     boundary = torch.zeros(n, dtype=torch.bool, device=dev)
-    boundary[0] = True
+    boundary[:1].fill_(True)
     for arr in out:
         boundary[1:] |= arr[1:] != arr[:-1]
     allvalid = torch.ones(n, dtype=torch.bool, device=dev)
@@ -171,12 +177,8 @@ def _try_pack2(l_ops, r_ops):
         l_ops[1], l_ops[0], l_ops[3], l_ops[2],
         r_ops[1], r_ops[0], r_ops[3], r_ops[2],
     ).cpu().numpy()
-    if m[0] > m[1] or m[2] > m[3]:
-        return None  # a side with no valid rows: leave unpacked
-    span1 = int(m[1]) - int(m[0]) + 1
-    span2 = int(m[3]) - int(m[2]) + 1
-    b2 = max(span2.bit_length(), 1)
-    if span1.bit_length() + b2 > 62:
+    b2 = _pack2_width(m)
+    if b2 is None:
         return None
     min1, min2 = int(m[0]), int(m[2])
     lv, lp = _pack2_apply(l_ops[0], l_ops[1], l_ops[2], l_ops[3], min1, min2, b2)
@@ -184,15 +186,66 @@ def _try_pack2(l_ops, r_ops):
     return [lv, lp], [rv, rp]
 
 
-def _key_ops(left_keys: list[Column], right_keys: list[Column]):
+def _key_args(left_keys: list[Column], right_keys: list[Column]):
+    """A program's key arguments: both sides' columns, the rank table when
+    a key is VARCHAR (fetched outside the program), and the key kinds."""
+    cols = list(left_keys) + list(right_keys)
+    return (
+        tuple(c.data for c in left_keys), tuple(c.valid for c in left_keys),
+        tuple(c.data for c in right_keys), tuple(c.valid for c in right_keys),
+        _rank_table_for(cols) if any(c.type == LogicalType.VARCHAR for c in cols) else None,
+    ), tuple((key_kind(l.type), key_kind(r.type)) for l, r in zip(left_keys, right_keys))
+
+
+def _encoded_ops(l_datas, l_valids, r_datas, r_valids, rank, kinds):
+    """(valid, encoded key) per key and side, as orderable_key encodes them."""
     l_ops: list = []
     r_ops: list = []
-    for l, r in zip(left_keys, right_keys):
-        lk, lv = orderable_key(l)
-        rk, rv = orderable_key(r)
+    for ld, lv, rd, rv, (lkind, rkind) in zip(l_datas, l_valids, r_datas, r_valids, kinds):
+        lk = _encode(lkind, ld, rank)
+        rk = _encode(rkind, rd, rank)
         l_ops += [lv, lk]
         r_ops += [rv, rk.to(lk.dtype)]
     return l_ops, r_ops
+
+
+@program
+def _pack2_stats_prog(l_datas, l_valids, r_datas, r_valids, rank, kinds):
+    l_ops, r_ops = _encoded_ops(l_datas, l_valids, r_datas, r_valids, rank, kinds)
+    return _pack2_stats(
+        l_ops[1], l_ops[0], l_ops[3], l_ops[2],
+        r_ops[1], r_ops[0], r_ops[3], r_ops[2],
+    )
+
+
+@program
+def _phase_a_prog(l_datas, l_valids, r_datas, r_valids, rank, l_alive, r_alive,
+                  stats, kinds, b2, counts_only: bool):
+    """Key encodings, the two-key packing when `b2` is set (its minima read
+    on the device from `stats`), and phase A, in one program (the
+    reference's `_pack2_apply` and `_pairs_phase_a`)."""
+    l_ops, r_ops = _encoded_ops(l_datas, l_valids, r_datas, r_valids, rank, kinds)
+    if b2 is not None:
+        min1, min2 = stats[0], stats[2]
+        l_ops = list(_pack2_apply(l_ops[0], l_ops[1], l_ops[2], l_ops[3], min1, min2, b2))
+        r_ops = list(_pack2_apply(r_ops[0], r_ops[1], r_ops[2], r_ops[3], min1, min2, b2))
+    starts, counts, order, total = _pairs_phase_a(
+        tuple(l_ops), tuple(r_ops), len(l_ops), l_alive, r_alive
+    )
+    return counts if counts_only else (starts, counts, order, total)
+
+
+def _pack2_width(m) -> int | None:
+    """The packing's shift for stats m (host values), or None when the
+    keys do not pack (_try_pack2's rule)."""
+    if m[0] > m[1] or m[2] > m[3]:
+        return None  # a side with no valid rows: leave unpacked
+    span1 = int(m[1]) - int(m[0]) + 1
+    span2 = int(m[3]) - int(m[2]) + 1
+    b2 = max(span2.bit_length(), 1)
+    if span1.bit_length() + b2 > 62:
+        return None
+    return b2
 
 
 def match_counts(build_keys: list[Column], probe_keys: list[Column],
@@ -202,22 +255,24 @@ def match_counts(build_keys: list[Column], probe_keys: list[Column],
     _pairs_phase_a's merged sort. NULL keys on either side never match;
     build_alive optionally masks build rows.
 
-    Two-key marks at scale pack both keys into one operand (_try_pack2):
-    packed equality == pairwise equality for in-range keys, and NULLs
-    (either column) stay non-matching via the ANDed validity."""
+    Two-key marks at scale pack both keys into one operand (_try_pack2's
+    rule; one stats program and one small fetch first): packed equality ==
+    pairwise equality for in-range keys, and NULLs (either column) stay
+    non-matching via the ANDed validity."""
     nl = len(build_keys[0])
     nr = len(probe_keys[0])
     if nl == 0 or nr == 0:
         return torch.zeros(nr, dtype=torch.int64, device=probe_keys[0].data.device)
-    l_ops, r_ops = _key_ops(build_keys, probe_keys)
-    if len(build_keys) == 2 and nl + nr >= _PACK2_MIN_ROWS:
-        packed = _try_pack2(l_ops, r_ops)
-        if packed is not None:
-            l_ops, r_ops = packed
-    _, counts, _, _ = _pairs_phase_a(
-        tuple(l_ops), tuple(r_ops), len(l_ops), build_alive, None
+    args, kinds = _key_args(build_keys, probe_keys)
+    stats, b2 = None, None
+    if (len(build_keys) == 2 and nl + nr >= _PACK2_MIN_ROWS
+            and all(lk != "float" for lk, _ in kinds)):
+        stats = _pack2_stats_prog(*args, kinds=kinds)
+        b2 = _pack2_width(stats.cpu().numpy())
+    return _phase_a_prog(
+        *args, build_alive, None, stats if b2 is not None else None,
+        kinds=kinds, b2=b2, counts_only=True,
     )
-    return counts
 
 
 def pair_ranges(left_keys: list[Column], right_keys: list[Column],
@@ -232,11 +287,16 @@ def pair_ranges(left_keys: list[Column], right_keys: list[Column],
     nr = len(right_keys[0])
     if nl == 0 or nr == 0:
         return None
-    l_ops, r_ops = _key_ops(left_keys, right_keys)
-    starts, counts, order, total = _pairs_phase_a(
-        tuple(l_ops), tuple(r_ops), len(l_ops), l_alive, r_alive
+    args, kinds = _key_args(left_keys, right_keys)
+    starts, counts, order, total = _phase_a_prog(
+        *args, l_alive, r_alive, None, kinds=kinds, b2=None, counts_only=False
     )
     return starts, counts, order, int(total)
+
+
+@program
+def _expand_prog(starts, counts, order, total: int):
+    return _expand_body(starts, counts, order, total)
 
 
 def expand_pairs(starts, counts, order, total: int):
@@ -245,7 +305,34 @@ def expand_pairs(starts, counts, order, total: int):
     if total == 0:
         z = torch.zeros(0, dtype=torch.int64, device=counts.device)
         return z, z
-    return _expand_body(starts, counts, order, total)
+    return _expand_prog(starts, counts, order, total)
+
+
+@program
+def _expand_gather_prog(starts, counts, order, l_datas, l_valids, r_datas,
+                        r_valids, total: int):
+    l_idx, r_idx = _expand_body(starts, counts, order, total)
+    return (
+        tuple(d[l_idx] for d in l_datas), tuple(v[l_idx] for v in l_valids),
+        tuple(d[r_idx] for d in r_datas), tuple(v[r_idx] for v in r_valids),
+    )
+
+
+def expand_gather(pr, left_cols: list[Column], right_cols: list[Column]):
+    """Phase B fused with the gather of both sides' output columns (the
+    reference's expand_gather_pairs): the inner join's rows, probe-major,
+    as (left columns, right columns)."""
+    starts, counts, order, total = pr
+    ld, lv, rd, rv = _expand_gather_prog(
+        starts, counts, order,
+        tuple(c.data for c in left_cols), tuple(c.valid for c in left_cols),
+        tuple(c.data for c in right_cols), tuple(c.valid for c in right_cols),
+        total,
+    )
+    return (
+        [Column(c.type, d, v) for c, d, v in zip(left_cols, ld, lv)],
+        [Column(c.type, d, v) for c, d, v in zip(right_cols, rd, rv)],
+    )
 
 
 def equi_join_pairs(left_keys: list[Column], right_keys: list[Column]):

@@ -28,6 +28,8 @@ import os
 
 import torch
 
+from sqlrs_tpu_torch.utils import programs
+
 K_LO = 256            # lanes of the reference's lo one-hot
 MXU_MAX_GROUPS = 1 << 16
 MXU_MAX_VAL_BITS = 24  # the reference's 3 exact bf16 limbs
@@ -129,6 +131,7 @@ def dense_group_sums(keys, vals, n_groups: int, key_min: int = 0, valid=None,
 
 
 dense_group_sums.launches = 0  # kernel launches, counted where they happen
+programs.register_kernel(dense_group_sums)  # replays of graphs that hold it count too
 
 
 def dense_group_sums_plain(keys, vals, n_groups: int, key_min: int = 0, valid=None,

@@ -27,6 +27,10 @@ reference's first-block table and its (G, 2048) gather); on a CPU tensor it
 runs `grouped_histogram_plain`, the same function in plain PyTorch. Nothing
 falls back from one to the other.
 
+The stats pass and phase A are programs (utils/programs.py), as they are
+jitted programs in the reference; kernel 1 runs inside phase A's graph, and
+the group count is fetched after it.
+
 The division that turns a scaled int64 sum back into a DOUBLE stays the
 reference's (`ssum / 10.0**k`, then `/ den` for avg), so a DOUBLE result is
 one IEEE division of the same exact total. The divisor is a tensor on the
@@ -46,6 +50,8 @@ from sqlrs_tpu_torch.data import Column
 from sqlrs_tpu_torch.data.batch import torch_dtype_for, ubigint_to_float
 from sqlrs_tpu_torch.ops.mxu_agg import mxu_backend_ok
 from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils import programs
+from sqlrs_tpu_torch.utils.programs import program
 
 MXU_AGG_MAX_GROUPS = 1024       # composite-domain cap (the reference's)
 MXU_AGG_MAX_VAL_BITS = 48       # 6 limbs / 2 input words per column
@@ -112,6 +118,7 @@ def grouped_histogram(gid, words, limb_plan, n_groups: int):
 
 
 grouped_histogram.launches = 0  # kernel launches, counted where they happen
+programs.register_kernel(grouped_histogram)  # replays of graphs that hold it count too
 
 
 def grouped_histogram_plain(gid, words, limb_plan, n_groups: int):
@@ -199,12 +206,14 @@ def _live_mask(alive, n: int, device):
     return alive
 
 
-def _agg_stats(kdatas, kvalids, alive, vdatas, vvalids):
+@program
+def _agg_stats_prog(kdatas, kvalids, alive, vdatas, vvalids):
     """Per key column [min, max, any_null] over (valid & alive) rows, int64;
     per value column [any_null, vmin, vmax, integral@10^0, @10^2, @10^4,
-    @10^6] over (valid & alive) rows, float64. Two small vectors, fetched
-    together. Key stats stay int64 (codes can exceed 2^53); value stats are
-    f64 (the path guards |scaled| < 2^48 anyway)."""
+    @10^6] over (valid & alive) rows, float64. Key stats stay int64 (codes
+    can exceed 2^53); value stats are f64 (the path guards |scaled| < 2^48
+    anyway). One int64 vector: the key stats, then the value stats' bits,
+    so that one fetch brings both."""
     first = kdatas[0] if kdatas else vdatas[0]
     n, dev = first.shape[0], first.device
     live = _live_mask(alive, n, dev)
@@ -235,11 +244,18 @@ def _agg_stats(kdatas, kvalids, alive, vdatas, vvalids):
             allok = torch.where(ok, row_ok, True).all()
             mag = torch.where(ok, torch.abs(s), 0.0).max()
             vparts.append((allok & (mag < float(1 << 46))).to(torch.float64))
-    kvec = torch.stack(kparts).cpu().numpy()
-    vvec = (
-        torch.stack(vparts).cpu().numpy() if vparts else np.zeros(0, np.float64)
-    )
-    return kvec, vvec
+    kvec = torch.stack(kparts)
+    if not vparts:
+        return kvec
+    return torch.cat([kvec, torch.stack(vparts).view(torch.int64)])
+
+
+def _agg_stats(kdatas, kvalids, alive, vdatas, vvalids):
+    """(key stats int64, value stats float64) on the host: the stats
+    program and one fetch."""
+    vec = _agg_stats_prog(kdatas, kvalids, alive, vdatas, vvalids).cpu().numpy()
+    nk = 1 + 3 * len(kdatas)
+    return vec[:nk], vec[nk:].view(np.float64)
 
 
 # --------------------------------------------------------------------------
@@ -247,6 +263,7 @@ def _agg_stats(kdatas, kvalids, alive, vdatas, vvalids):
 # --------------------------------------------------------------------------
 
 
+@program
 def _mxu_agg_phase_a(
     kdatas, kvalids, alive, vdatas, vvalids, kmins, biases,
     key_plan, val_plan, spec, n_groups: int,
@@ -254,7 +271,10 @@ def _mxu_agg_phase_a(
     """key_plan: per key (span_eff, has_null, torch dtype); val_plan: per
     value column (n_limbs, has_null, scale_k); spec: per aggregate (op,
     col_ix, out dtype, is_float_sum) with op in {count_star, count, sum,
-    avg}. Returns first-appearance-ordered G-sized outputs + n_nonempty."""
+    avg}. Returns first-appearance-ordered G-sized outputs + n_nonempty (a
+    device scalar: the caller fetches it after the program). kmins and
+    biases are static here, in the key (the reference passes them as
+    traced scalars; a device scalar made from a host int is an upload)."""
     first = kdatas[0] if kdatas else vdatas[0]
     n, dev = first.shape[0], first.device
     live = _live_mask(alive, n, dev)
@@ -311,7 +331,7 @@ def _mxu_agg_phase_a(
     chans, first_row = grouped_histogram(k32, word_mat, limb_plan, n_groups)
     counts = chans[0]
     nonempty = counts > 0
-    n_out = int(nonempty.sum())
+    n_out = nonempty.sum()
 
     # ---- first-appearance order + decode, all at G size ------------------
     order = torch.argsort(first_row, stable=True)        # nonempty first
@@ -521,19 +541,20 @@ def mxu_grouped_aggregate(key_cols, agg_specs, alive=None):
         is_float = val_cols[ci].type.is_float() or val_plan[ci][2] > 0
         spec.append((name, ci, torch_dtype_for(rt), is_float))
 
-    gdata, gvalid, adata, avalid, n_groups = _mxu_agg_phase_a(
+    gdata, gvalid, adata, avalid, n_out = _mxu_agg_phase_a(
         [c.data for c in key_cols],
         [c.valid for c in key_cols],
         alive,
         [c.data for c in val_cols],
         [c.valid for c in val_cols],
-        kmins,
-        biases,
-        key_plan,
-        val_plan,
-        spec,
+        tuple(kmins),
+        tuple(biases),
+        tuple(key_plan),
+        tuple(val_plan),
+        tuple(spec),
         g_total,
     )
+    n_groups = int(n_out)
     group_cols = [
         Column(c.type, d[:n_groups], v[:n_groups])
         for c, d, v in zip(key_cols, gdata, gvalid)

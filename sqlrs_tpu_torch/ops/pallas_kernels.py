@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from sqlrs_tpu_torch.utils import programs
+
 ROW = 128           # lanes per row, the rank stage's block
 
 
@@ -158,3 +160,5 @@ def masked_row_sum(v2d, block_idx, rem):
 
 row_rank_ge.launches = 0       # kernel launches, counted where they happen
 masked_row_sum.launches = 0
+programs.register_kernel(row_rank_ge)  # replays of graphs that hold them count too
+programs.register_kernel(masked_row_sum)

@@ -7,10 +7,9 @@ int64 tensors (strings via dictionary lex-ranks) and sorted by stable
 as the JAX package's one variadic stable `lax.sort` with `num_keys=k`.
 NULLs sort first in both directions (arrow SortOptions default the
 reference inherits). Filter compaction, which the JAX package also does by
-a stable flag sort here, is `torch.nonzero` of the mask
-(ops/elementwise.selection_to_indices), or, where the count is already on
-the host, a scatter of each kept row to its rank (ops/fused.compact_indices):
-the same rows in the same order.
+a stable flag sort here, is a scatter of each kept row to its rank, with
+the count already on the host (ops/fused.compact_indices): the same rows in
+the same order.
 
 Float keys follow `lax.sort`'s order, which is not IEEE total order:
 -0.0 and +0.0 tie (the stable sort keeps their row order), and every NaN,
@@ -29,6 +28,7 @@ from sqlrs_tpu_torch.data.batch import ubigint_key
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS
 from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils.programs import program
 
 _INT64_MIN = -(2**63)
 _INT64_MAX = 2**63 - 1
@@ -134,24 +134,60 @@ def _lex_argsort(keys: list) -> torch.Tensor:
 
 
 # ---- public API --------------------------------------------------------------
+# Each is one program (utils/programs.py), as `_sort_indices_jit` and
+# `_sort_gather_jit` are one jitted program each in the JAX package: the
+# key encodings, every argsort pass and the gathers in one submission. The
+# rank table is an argument, fetched (and built, when the dictionary grew)
+# before the program, as the reference passes it.
+
+
+def _sort_perm(kdatas, kvalids, rank, kinds, ascs):
+    keys = [
+        _directed(k, a, d, v, rank)
+        for k, a, d, v in zip(kinds, ascs, kdatas, kvalids)
+    ]
+    return _lex_argsort(keys)
+
+
+@program
+def _sort_indices_prog(kdatas, kvalids, rank, kinds, ascs):
+    return _sort_perm(kdatas, kvalids, rank, kinds, ascs)
+
+
+@program
+def _sort_rows_prog(kdatas, kvalids, rank, datas, valids, kinds, ascs):
+    perm = _sort_perm(kdatas, kvalids, rank, kinds, ascs)
+    return tuple(d[perm] for d in datas), tuple(v[perm] for v in valids)
+
+
+def _sort_args(items):
+    cols = [c for c, _ in items]
+    return (
+        tuple(c.data for c in cols),
+        tuple(c.valid for c in cols),
+        _rank_table_for(cols),
+    ), dict(
+        kinds=tuple(key_kind(c.type) for c in cols),
+        ascs=tuple(bool(a) for _, a in items),
+    )
 
 
 def sort_indices(items: list[tuple[Column, bool]]):
     """Permutation sorting rows by the given (column, ascending) keys;
     stable, NULLs first."""
-    cols = [c for c, _ in items]
-    rank = _rank_table_for(cols)
-    keys = [
-        _directed(key_kind(c.type), bool(a), c.data, c.valid, rank)
-        for c, a in items
-    ]
-    return _lex_argsort(keys)
+    args, static = _sort_args(items)
+    return _sort_indices_prog(*args, **static)
 
 
 def sort_rows(items: list[tuple[Column, bool]], columns: list[Column]):
-    """Sort whole rows: the key permutation, then one gather per column.
-    (The JAX package also has sort_gather_rows for wide tables, because a
-    payload-carrying sort and a permutation + gather cost differently
-    there; here they are the same.)"""
-    perm = sort_indices(items)
-    return [Column(c.type, c.data[perm], c.valid[perm]) for c in columns]
+    """Sort whole rows: the key permutation, then one gather per column,
+    in one program (the JAX package's `_sort_gather_jit`; its
+    payload-carrying `_sort_rows_jit` gives the same rows)."""
+    args, static = _sort_args(items)
+    datas, valids = _sort_rows_prog(
+        *args,
+        tuple(c.data for c in columns),
+        tuple(c.valid for c in columns),
+        **static,
+    )
+    return [Column(c.type, d, v) for c, d, v in zip(columns, datas, valids)]

@@ -110,6 +110,11 @@ class DataTable:
                 )
                 for i, t in enumerate(self.types)
             ]
+            # the snapshot's address stays fixed until the table changes:
+            # programs read it in place (utils/programs.py)
+            from sqlrs_tpu_torch.utils.programs import mark_resident
+
+            mark_resident(*(t for c in snap for t in (c.data, c.valid)))
             self._snapshots[device] = snap
         return snap
 
