@@ -76,7 +76,7 @@ Phases, each printing one line or a few:
                    through the four join + GROUP BY strategies of
                    parallel/dist_ops.py, each equal to numpy exactly; then
                    the 22 TPC-H queries at SF1 on phase 6's tables through
-                   Database(mesh=...), one cold and two warm runs each, every
+                   Database(mesh=...), one cold and three warm runs each, every
                    run's rows equal to phase 6's single-device rows by the
                    same rule, with warm ms beside the single-device ms, the
                    join strategies, kernel launches, peak device memory and
@@ -186,8 +186,22 @@ Phases, each printing one line or a few:
                    cold and capture-run ms, peak GB; graphs, pool bytes,
                    captures, replays, capture seconds and the calls routed
                    eagerly by reason. grouped_histogram must have been
-                   launched from a replayed graph. A failed capture or
-                   replay raises ProgramError, which no phase catches.
+                   launched from a replayed graph. After phase 8's profiles
+                   (printed as `programs_dist`), on phase 8's mesh: each of
+                   the reference's shard_map programs is one program over
+                   every shard (utils/programs.mesh_program); the 22 over
+                   4 shards after programs.clear(): off, on (first
+                   sightings), on (captures), off, on, on, off, every run
+                   bit-equal to the first off run and equal to phase 6's
+                   rows by phase 8's rule; one profiled run a query each
+                   way, printed as the one-device half prints them,
+                   beside the reference's sharded dispatches
+                   (REF_DISPATCHES_DIST) and with the graphs, pool bytes,
+                   replays and eager reasons of each query; then phase 8's
+                   four star strategies, off once and on three times, each
+                   run bit-equal to the off run and equal to numpy. Some
+                   sharded stage must have been replayed. A failed capture
+                   or replay raises ProgramError, which no phase catches.
 
 Then one JSON line about the kernels, and last one JSON line
 {"ok": true, "device": {...}}. Any failure raises, and the process exits
@@ -1627,7 +1641,10 @@ def phase_tpch22(dev, card: str) -> dict:
 
 DIST_SHARDS = 4
 # the sharded engine's functions the profile reports besides phase 7's: the
-# collectives, the rank stage's callers and the per-shard operators
+# collectives, the rank stage's callers and the per-shard operators (the
+# collectives and the per-shard functions run inside the stages' graphs
+# once captured, and so show only where a stage runs eagerly), and the
+# stage programs themselves (parallel/*: utils/programs.mesh_program)
 DIST_FUNCTIONS = PROFILED_FUNCTIONS + (
     "parallel.collectives.all_to_all", "parallel.collectives.psum",
     "parallel.collectives.psum_scatter", "parallel.collectives.all_gather",
@@ -1636,6 +1653,8 @@ DIST_FUNCTIONS = PROFILED_FUNCTIONS + (
     "ops.grouped_agg.partial_grouped_fixed", "parallel.dist_join.broadcast_agg_join",
     "parallel.dist_join.ring_agg_join", "parallel.dist_join.shuffle_join_phase_a",
     "parallel.dist_join.shuffle_join_phase_b", "parallel.dist_ops.dist_sort_rows",
+    "parallel.dist_executor._grouped_partials", "parallel.dist_join._phase_a_stage",
+    "parallel.dist_join._phase_b_stage", "parallel.dist_ops._sort_rows_stage",
 )
 
 
@@ -1707,7 +1726,7 @@ def phase_dist_star(dev, card: str, star: dict, mesh) -> None:
 
 def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
     """All 22 TPC-H queries at SF1 through Database(mesh=mesh).run on the
-    tables of phase 6: one cold and two warm runs each, every run's rows
+    tables of phase 6: one cold and three warm runs each, every run's rows
     equal to phase 6's single-device rows by benchmarks/tpch.py's rule
     (floats rel 1e-9 or abs 1e-6, the rest exact). Then one profiled warm
     run of each query (syncs, launches, device time) and a profile of the
@@ -1732,7 +1751,9 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         before = _kernel_counts()
         times = []
-        for _ in range(3):  # one cold run, then two warm runs
+        # one cold run, then three warm runs: with programs on, the first
+        # warm run captures the sharded stages' graphs, the others replay
+        for _ in range(4):
             got, ms = tpch_run(db, qn)
             times.append(ms)
             tpch_compare(got, single[qn]["rows"], f"Q{qn} (sharded vs single device)")
@@ -1744,20 +1765,11 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
         }
     launches = _kernel_counts()
 
-    from torch.profiler import ProfilerActivity, profile
-
     for qn in range(1, 23):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            tpch_run(db, qn)
-        calls, dev_us = {}, 0.0
-        for e in prof.key_averages():
-            calls[e.key] = calls.get(e.key, 0) + e.count
-            if str(e.device_type).endswith("CUDA"):
-                dev_us += float(getattr(e, "self_device_time_total", 0)
-                                or getattr(e, "self_cuda_time_total", 0) or 0)
-        results[qn]["syncs"] = sum(calls.get(c, 0) for c in _SYNC_CALLS)
-        results[qn]["kernel_launches"] = sum(calls.get(c, 0) for c in _LAUNCH_CALLS)
-        results[qn]["device_ms"] = dev_us / 1e3
+        p = profiled_counts(lambda: tpch_run(db, qn))
+        results[qn]["syncs"] = p["syncs"]
+        results[qn]["kernel_launches"] = p["launches"]
+        results[qn]["device_ms"] = p["device_ms"]
 
     for qn, r in results.items():
         ms, one = r["ms"], single[qn]["ms"]
@@ -1767,7 +1779,7 @@ def phase_dist_tpch(dev, card: str, mesh, tables, single: dict) -> dict:
             f"{', '.join(f'{t:.1f}' for t in ms[1:])}) vs {float(np.median(one[1:])):.1f} ms "
             f"on one device; strategies {r['strategies']}; launches {lc}; peak device "
             f"memory {r['peak_gb']:.2f} GB; profiled run: {r['syncs']} stream syncs, "
-            f"{r['kernel_launches']} kernel launches, device {r['device_ms']:.1f} ms",
+            f"{r['kernel_launches']} launches (kernels + graphs), device {r['device_ms']:.1f} ms",
             flush=True,
         )
     dist_sum = sum(float(np.median(r["ms"][1:])) for r in results.values())
@@ -2860,10 +2872,14 @@ _COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy")
 
 def profiled_counts(run) -> dict:
     """run() under torch.profiler: kernel launches (as phase 7 counts
-    them), graph launches, memory copies and sets, stream syncs, device ms."""
+    them), graph launches, memory copies and sets, stream syncs, device ms.
+    The CUDA activity alone records the runtime calls and the kernels: the
+    same counts and device time as with the CPU's operator events too, for
+    a third to a quarter of the profiler's host time (on the H100, the
+    sharded Q5 at SF 0.1 either way)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
@@ -3116,6 +3132,241 @@ def phase_programs_tpch(dev, card: str, db, results22: dict) -> dict:
     return launches
 
 
+# The reference's sharded dispatches a query: benchmarks/dispatch_count.py
+# over the JAX package's 4-device CPU mesh (`python -m
+# benchmarks.dispatch_count --sf 0.002 --devices 4 --queries 1,...,22`, its
+# tables at seed 0), one warm run each: jitted programs (shard_map stages and
+# the per-op programs of the global-view jnp code) plus host fetches,
+# 37497 in all. The card's machine has no JAX, so the counts are data here.
+REF_DISPATCHES_DIST = {1: 2687, 2: 4720, 3: 1923, 4: 595, 5: 3231, 6: 19, 7: 2130, 8: 2514,
+                       9: 2109, 10: 2774, 11: 1783, 12: 1873, 13: 247, 14: 253, 15: 2770,
+                       16: 451, 17: 1173, 18: 1641, 19: 568, 20: 1949, 21: 2015, 22: 72}
+
+
+def _stage_replays() -> int:
+    """Replays of the sharded stages' programs (utils/programs.mesh_program)."""
+    from sqlrs_tpu_torch.utils import programs
+
+    return sum(n for name, n in programs.stats.replays_by.items()
+               if name.startswith("sqlrs_tpu_torch.parallel."))
+
+
+def phase_programs_dist(dev, card: str, mesh, db, results22: dict, star: dict) -> dict:
+    """Phase 13, its sharded half, on phase 8's mesh (4 shards sharing the
+    card) and phase 6's tables, where each of the reference's shard_map
+    programs is one program of the port (one CUDA graph over every shard).
+    After programs.clear(): passes of the 22 off (SQLRS_TPU_FUSE=0), on
+    (first sightings, run eagerly), on (captures), then off, on, on, off
+    (warm: the medians of the last two of each); every
+    run bit-equal to the first off run and equal to phase 6's single-device
+    rows by phase 8's rule. One profiled run a query each way: launches
+    (kernel launches plus graph launches), memory copies, syncs, device ms.
+    Then phase 8's four star strategies at 2^25 x 2^16: off once, on three
+    times (warm-up, capture, replay), every result bit-equal to the off run
+    and equal to numpy, one profiled run each way. Raises if no sharded
+    stage was replayed. Returns each kernel's launches in the phase."""
+    from sqlrs_tpu_torch.parallel import dist_ops
+    from sqlrs_tpu_torch.utils import programs
+
+    t_phase = time.perf_counter()
+    queries = {qn: tpch_statements(qn) for qn in range(1, 23)}
+    _zero_kernel_counts()
+    programs.clear()
+    programs.reset_stats()
+    torch.cuda.empty_cache()
+    want, diffs = {}, []
+    ms = {k: {} for k in ("cold_off", "cold_on", "capture", "off", "on")}
+    peak = {"on": {}, "off": {}}
+    per_q = {qn: {"graphs": 0, "pool_bytes": 0, "replays": 0, "eager": {}} for qn in queries}
+    # host seconds in Python's full (generation 2) garbage collections, by
+    # run: the multi-second spikes of single runs are read beside them
+    gc_full = {"s": 0.0, "t0": 0.0}
+    slow_runs = []
+
+    def gc_timer(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                gc_full["t0"] = time.perf_counter()
+            else:
+                gc_full["s"] += time.perf_counter() - gc_full["t0"]
+
+    def pool():
+        caches = programs.caches().values()
+        return sum(c.graphs() for c in caches), sum(c.pool_bytes for c in caches)
+
+    def one_pass(label, on, record):
+        for qn, stmts in queries.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            g0, p0 = pool()
+            r0, e0 = programs.stats.replays, dict(programs.stats.eager_routed)
+            gc0 = gc_full["s"]
+            with fuse(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = [db.run(s) for s in stmts]
+                torch.cuda.synchronize()
+                t = (time.perf_counter() - t0) * 1e3
+            if t > 1000:  # a spike: read it beside the full collections in it
+                slow_runs.append((qn, label, round(t, 1),
+                                  round((gc_full["s"] - gc0) * 1e3, 1)))
+            bits = result_bits(outs)
+            if qn not in want:
+                want[qn] = bits
+            elif bits != want[qn]:
+                diffs.append((qn, label))
+            rows = []
+            for batches in outs:
+                out = [tuple(r) for b in batches for r in b.to_pylist()]
+                if out or (batches and batches[0].columns):
+                    rows = out
+            try:
+                tpch_compare(rows, results22[qn]["rows"], f"Q{qn} ({label}, sharded)")
+            except AssertionError as e:
+                diffs.append((qn, f"{label}: phase 6's rows: {e}"))
+            ms[record].setdefault(qn, []).append(t)
+            if record == "capture":
+                g1, p1 = pool()
+                per_q[qn]["graphs"], per_q[qn]["pool_bytes"] = g1 - g0, p1 - p0
+            if record == "on":
+                per_q[qn]["replays"] = programs.stats.replays - r0
+                per_q[qn]["eager"] = {k: n - e0.get(k, 0) for k, n in
+                                      programs.stats.eager_routed.items() if n - e0.get(k, 0)}
+            if record in ("on", "off"):
+                peak[record][qn] = max(peak[record].get(qn, 0.0),
+                                       torch.cuda.max_memory_allocated(dev) / 1e9)
+
+    import gc
+
+    gc.callbacks.append(gc_timer)
+    try:
+        one_pass("cold off", False, "cold_off")
+        one_pass("cold on", True, "cold_on")
+        one_pass("capture", True, "capture")
+        for label, on in (("off 1", False), ("on 1", True), ("on 2", True), ("off 2", False)):
+            one_pass(label, on, "on" if on else "off")
+    finally:
+        gc.callbacks.remove(gc_timer)
+    stage_replays_22 = _stage_replays()
+    passes_s = time.perf_counter() - t_phase
+    prof = {"on": {}, "off": {}}
+    for qn, stmts in queries.items():
+        for key, on in (("on", True), ("off", False)):
+            with fuse(on):
+                prof[key][qn] = profiled_counts(lambda: [db.run(s) for s in stmts])
+    rep22 = _program_report()
+    profile_s = time.perf_counter() - t_phase - passes_s
+    for qn in queries:
+        p_on, p_off, q = prof["on"][qn], prof["off"][qn], per_q[qn]
+        print(f"  Q{qn} over {mesh.size} shards: launches {p_on['launches']} on "
+              f"({p_on['graphs']} graphs) / {p_off['launches']} off, reference "
+              f"{REF_DISPATCHES_DIST.get(qn, '-')} dispatches; memcpy {p_on['memcpy']} / "
+              f"{p_off['memcpy']}; syncs {p_on['syncs']} / {p_off['syncs']}; device "
+              f"{p_on['device_ms']:.3f} / {p_off['device_ms']:.3f} ms; warm "
+              f"{float(np.median(ms['on'][qn])):.1f} / {float(np.median(ms['off'][qn])):.1f} ms; "
+              f"cold {ms['cold_on'][qn][0]:.1f} / {ms['cold_off'][qn][0]:.1f} ms, capture run "
+              f"{ms['capture'][qn][0]:.1f} ms; peak {peak['on'][qn]:.2f} / "
+              f"{peak['off'][qn]:.2f} GB; {q['graphs']} graphs captured, pool +"
+              f"{q['pool_bytes'] / 1e6:.1f} MB; {q['replays']} replays a warm run; eager "
+              f"{q['eager'] or 'none'}", flush=True)
+
+    def total(key, on):
+        return sum(prof[on][qn][key] for qn in queries)
+
+    # ---- the star strategies, on against off -----------------------------------
+    gid, v = star["gid"], star["v"]
+    keys = np.arange(STAR_GROUPS, dtype=np.int64)
+    exp_s = np.bincount(gid, weights=v, minlength=STAR_GROUPS).astype(np.int64)
+    exp_c = np.bincount(gid, minlength=STAR_GROUPS).astype(np.int64)
+    fk = torch.from_numpy(keys[gid]).to(dev)
+    fv = torch.from_numpy(v).to(dev)
+    dk = torch.from_numpy(keys).to(dev)
+    g = STAR_GROUPS
+    cap0 = 2 * STAR_ROWS // (mesh.size * mesh.size)
+    strategies = {
+        "broadcast": lambda: dist_ops.dist_join_groupby_broadcast(mesh, fk, fv, dk, g),
+        "shuffle_checked": lambda: dist_ops.dist_join_groupby_shuffle_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0),
+        "salted_checked": lambda: dist_ops.dist_join_groupby_salted_checked(
+            mesh, fk, fv, dk, g, bucket_capacity=cap0, hot_capacity=1024),
+        "ring": lambda: dist_ops.dist_join_groupby_ring(mesh, fk, fv, dk, g),
+    }
+    star_out = {}
+    for name, fn in strategies.items():
+        times, bits = [], []
+        for on in (False, True, True, True):  # off; on: warm-up, capture, replay
+            torch.cuda.reset_peak_memory_stats(dev)
+            with fuse(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sums, cnts = fn()
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            s_np, c_np = sums.cpu().numpy(), cnts.cpu().numpy()
+            bits.append((s_np.tobytes(), c_np.tobytes()))
+            if not (np.array_equal(s_np, exp_s) and np.array_equal(c_np, exp_c)):
+                diffs.append((f"star {name}", "on" if on else "off", "!= numpy"))
+        if any(b != bits[0] for b in bits[1:]):
+            diffs.append((f"star {name}", "on != off"))
+        peak_on = torch.cuda.max_memory_allocated(dev) / 1e9
+        with fuse(True):
+            p_on = profiled_counts(fn)
+        with fuse(False):
+            p_off = profiled_counts(fn)
+        star_out[name] = {"ms": [round(t, 3) for t in times], "launches_on": p_on["launches"],
+                          "launches_off": p_off["launches"], "device_ms_on": p_on["device_ms"],
+                          "device_ms_off": p_off["device_ms"], "peak_gb_on": round(peak_on, 2)}
+        print(f"  star {name}: off {times[0]:.1f} ms; on {times[1]:.1f} (first sighting), "
+              f"{times[2]:.1f} (capture), {times[3]:.1f} ms (replay); launches {p_on['launches']} "
+              f"on ({p_on['graphs']} graphs) / {p_off['launches']} off; memcpy {p_on['memcpy']} / "
+              f"{p_off['memcpy']}; syncs {p_on['syncs']} / {p_off['syncs']}; device "
+              f"{p_on['device_ms']:.3f} / {p_off['device_ms']:.3f} ms; peak {peak_on:.2f} GB on; "
+              f"bit-equal on and off and equal numpy's: "
+              f"{not any(d[0] == f'star {name}' for d in diffs)} [{card}]", flush=True)
+    del fk, fv, dk
+    star_s = time.perf_counter() - t_phase - passes_s - profile_s
+    launches = _kernel_counts()
+    rep = _program_report()
+    summary = {
+        "phase": "programs_dist", "shards": mesh.size,
+        "launches": {"on": total("launches", "on"), "off": total("launches", "off")},
+        "graph_launches_on": total("graphs", "on"),
+        "kernel_launches": {"on": total("kernels", "on"), "off": total("kernels", "off")},
+        "memcpy": {"on": total("memcpy", "on"), "off": total("memcpy", "off")},
+        "memset": {"on": total("memset", "on"), "off": total("memset", "off")},
+        "syncs": {"on": total("syncs", "on"), "off": total("syncs", "off")},
+        "device_ms": {"on": round(total("device_ms", "on"), 3),
+                      "off": round(total("device_ms", "off"), 3)},
+        "warm_ms_sum": {k: round(sum(float(np.median(ms[k][qn])) for qn in queries), 1)
+                        for k in ("on", "off")},
+        "cold_ms_sum": {"on": round(sum(ms["cold_on"][qn][0] for qn in queries), 1),
+                        "off": round(sum(ms["cold_off"][qn][0] for qn in queries), 1),
+                        "capture_run": round(sum(ms["capture"][qn][0] for qn in queries), 1)},
+        "peak_gb_max": {k: round(max(peak[k][qn] for qn in queries), 2) for k in ("on", "off")},
+        "reserved_gb": round(torch.cuda.memory_reserved(dev) / 1e9, 2),
+        "stage_replays_22": stage_replays_22, "stage_replays": _stage_replays(),
+        "gc_full_s": round(gc_full["s"], 3),
+        "runs_over_1s": [{"query": q, "run": lb, "ms": t, "gc_full_ms": g}
+                         for q, lb, t, g in slow_runs],
+        "reference_dispatches": sum(REF_DISPATCHES_DIST.values()) or None,
+        "programs_22": rep22, "programs": rep, "star": star_out,
+        "not_bit_equal": len(diffs), "kernels": launches,
+        "seconds": {"passes": round(passes_s, 1), "profiles": round(profile_s, 1),
+                    "star": round(star_s, 1), "all": round(time.perf_counter() - t_phase, 1)},
+        "card": card,
+    }
+    print(json.dumps(summary), flush=True)
+    for d in diffs[:20]:
+        print(f"  NOT EQUAL: {d}", flush=True)
+    if diffs:
+        raise AssertionError(f"phase programs_dist: {len(diffs)} runs differ")
+    if stage_replays_22 == 0 or summary["stage_replays"] == stage_replays_22:
+        raise AssertionError("phase programs_dist: no sharded stage was replayed "
+                             f"({stage_replays_22} in the 22, none in the star)")
+    programs.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def write_tables(tables: dict, tmpdir: str) -> str:
     """Pickle the tables (numpy columns) once for phase 10's children."""
     import pickle
@@ -3203,6 +3454,8 @@ def main() -> int:
     hist_launches += phase_profiled22(
         card, f"TPC-H SF {TPCH22_SF} over {mesh.size} shards on one card (dist: labels)",
         dist_db, results22)
+    # phase 13's sharded half: the shard_map stages as programs, on and off
+    launches_prog_dist = phase_programs_dist(dev, card, mesh, dist_db, results22, star)
     del dist_db
     # phase 10's children read phase 6's tables from here, the same bytes each
     tables_path = write_tables(tables22, tmp.name)
@@ -3215,7 +3468,8 @@ def main() -> int:
     launches_mp = phase_multiprocess(dev, card, tmp.name, tables_path, results22, results_dist)
     tmp.cleanup()
     for extra in (launches22, launches_dist, launches_b, launches_mp, launches_fuzz,
-                  launches_cases, launches_prog_corpus, launches_prog_tpch):
+                  launches_cases, launches_prog_corpus, launches_prog_tpch,
+                  launches_prog_dist):
         hist_launches += extra["grouped_histogram"]
         for name in ("dense_group_sums", "row_rank_ge", "masked_row_sum"):
             launches[name] += extra[name]

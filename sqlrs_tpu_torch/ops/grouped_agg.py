@@ -638,7 +638,7 @@ def partial_grouped_fixed(alive, row_idx, keys, aggs, g_cap: int):
     alive_b = out[num_keys] > 0
 
     new_run = torch.zeros(n, dtype=torch.bool, device=dev)
-    new_run[0] = True
+    new_run[:1].fill_(True)  # not `new_run[0] = True`: a host scalar's copy
     for arr in out[1:num_keys - 1]:  # key fields only (not dead flag/row)
         new_run[1:] |= arr[1:] != arr[:-1]
     new_run = new_run & alive_b

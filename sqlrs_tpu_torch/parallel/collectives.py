@@ -17,6 +17,16 @@ for NCCL, host memory for gloo, through which CUDA tensors are staged
 explicitly. Bools travel as uint8. `mesh.stats` counts the bytes this
 process sends to others and the seconds spent staging.
 
+The one-process bodies read nothing on the host and size every result by
+its inputs' shapes, so a sharded stage that calls them is one program
+(utils/programs.mesh_program): on shards that share one card they are
+device-to-device copies and reductions inside the stage's CUDA graph.
+`reduce_max` is the reference's pmax; where the reference reads it on the
+host (an overflow, phase A's m), the caller reads it after the stage.
+`LiveRows` and `gather` (nonzero, data-sized results) are collect
+boundaries and run outside every stage. The process-group bodies are
+torch.distributed calls and run eagerly.
+
 Every result is a new tensor. With several shards on one device
 `t.to(dev)` returns `t` itself, so a received buffer would otherwise alias
 the sender's, and a consumer writing it in place would corrupt the other

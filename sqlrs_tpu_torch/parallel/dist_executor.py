@@ -53,6 +53,7 @@ from sqlrs_tpu_torch.parallel.mesh import (
 )
 from sqlrs_tpu_torch.plan import physical as P
 from sqlrs_tpu_torch.types import LogicalType, ScalarValue
+from sqlrs_tpu_torch.utils.programs import mesh_program
 
 _INT64_MAX = 2**63 - 1
 _GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
@@ -827,11 +828,7 @@ class DistributedExecutor:
         standard sorted-run kernel. The min global row index is carried as a
         partial state and the final rows are ordered by it, reproducing the
         reference's first-appearance group order exactly."""
-        from sqlrs_tpu_torch.ops.grouped_agg import (
-            _unsortable,
-            partial_grouped_fixed,
-            sorted_grouped_aggregate,
-        )
+        from sqlrs_tpu_torch.ops.grouped_agg import _unsortable, sorted_grouped_aggregate
         from sqlrs_tpu_torch.ops.hash_table import next_pow2
         from sqlrs_tpu_torch.ops.sort import orderable_key
 
@@ -884,12 +881,8 @@ class DistributedExecutor:
         row_idx = child.rowid or shard_positions(mesh, cap_local)
         g_cap = min(next_pow2(max(64, cap_local // 8)), next_pow2(cap_local))
         while True:
-            outs = [
-                partial_grouped_fixed(child.alive[s], row_idx[s], keys[s], aggs[s], g_cap)
-                for s in rng
-            ]
-            overflow = bool(collectives.reduce_max(mesh, [o[5] for o in outs]))
-            if not overflow or g_cap >= next_pow2(cap_local):
+            outs, overflow = _grouped_partials(mesh, child.alive, row_idx, keys, aggs, g_cap)
+            if not bool(overflow) or g_cap >= next_pow2(cap_local):
                 break
             g_cap = min(g_cap * 4, next_pow2(cap_local))  # retry with a larger capacity
 
@@ -1333,6 +1326,22 @@ class DistributedExecutor:
         for c in op.children[1:]:
             cache[id(c)] = self._materialize(self.execute(c))
         return _DelegatingExecutor(self.db, cache).execute(op)
+
+
+@mesh_program
+def _grouped_partials(mesh, alive, row_idx, keys, aggs, g_cap: int):
+    """Every shard's fixed-capacity partial GROUP BY
+    (ops/grouped_agg.partial_grouped_fixed) and the capacity overflow over
+    all shards, as one program: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_executor.py:960. The caller reads the overflow
+    after it and retries with a larger g_cap outside it."""
+    from sqlrs_tpu_torch.ops.grouped_agg import partial_grouped_fixed
+
+    outs = [
+        partial_grouped_fixed(alive[s], row_idx[s], keys[s], aggs[s], g_cap)
+        for s in range(mesh.n_local)
+    ]
+    return outs, collectives.reduce_max(mesh, [o[5] for o in outs])
 
 
 def _combine_keys_sharded(mesh, f1, f2, d1, d2):

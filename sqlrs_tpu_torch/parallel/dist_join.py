@@ -31,10 +31,15 @@ ops/join.equi_join_pairs):
     order inner), so the collected result is bit-exact including row order
     (the ShardedBatch.rowid machinery).
 
-The reference's scan bodies become Python loops over ring steps, each over
-the shards; the `_varying` vma alignment of its ring probe (a shard_map
-type check) has nothing to port. A sharded array is a list of per-shard
-tensors (parallel/dist_ops.py).
+Each of the reference's five shard_map programs (phase A, phase B,
+ring_agg_join, broadcast_agg_join, pair_local_dedup) is one program here
+(`utils/programs.mesh_program`, one CUDA graph over every shard on a
+one-card, one-process mesh; see parallel/dist_ops.py). Phase A's program
+ends where the reference's does, at the one host read, which its caller
+makes. The reference's scan bodies become Python loops over ring steps,
+each over the shards; the `_varying` vma alignment of its ring probe (a
+shard_map type check) has nothing to port. A sharded array is a list of
+per-shard tensors (parallel/dist_ops.py).
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ from sqlrs_tpu_torch.ops.fused import prefix_sum
 from sqlrs_tpu_torch.ops.hash_table import _mix64, umod
 from sqlrs_tpu_torch.ops.join import _pairs_phase_a
 from sqlrs_tpu_torch.ops.sort import _lex_argsort
-from sqlrs_tpu_torch.parallel import collectives
+from sqlrs_tpu_torch.parallel import collectives, dist_ops
 from sqlrs_tpu_torch.parallel.dist_ops import _bucketize_rows, _exchange_rows
+from sqlrs_tpu_torch.utils.programs import mesh_program
 
 _N_BUCKETS = 4096
 _BLK = 128
@@ -135,7 +141,23 @@ def _combined_hash(key_pairs):
     return h
 
 
-def shuffle_join_phase_a(
+def shuffle_join_phase_a(mesh, *args, **kwargs) -> ShuffleJoinPhaseA:
+    """Phase A (exchange + rank) as one program, then its one host read:
+    the overflow, the hot-bucket count and the global max match count m
+    (see the module docstring; arguments as `_phase_a_stage`)."""
+    b_arrays, bm, p_arrays, pm, starts, counts, orders, meta = _phase_a_stage(
+        mesh, *args, **kwargs
+    )
+    overflow, n_hot, m = meta.tolist()
+    return ShuffleJoinPhaseA(
+        build_arrays=b_arrays, build_mask=bm, probe_arrays=p_arrays, probe_mask=pm,
+        starts=starts, counts=counts, order=orders,
+        overflow=int(overflow), n_hot_buckets=int(n_hot), m=int(m),
+    )
+
+
+@mesh_program
+def _phase_a_stage(
     mesh,
     b_keys,  # [(enc sharded array, valid sharded array)] per join key, build side
     b_payload,  # sharded arrays to carry (col data + validity as int32)
@@ -153,6 +175,9 @@ def shuffle_join_phase_a(
     hot_min: int | None = None,
     ring: bool = False,
 ):
+    """Phase A's program, up to its host read: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_join.py:328. Returns the sharded arrays of
+    ShuffleJoinPhaseA and one device vector (overflow, hot buckets, m)."""
     # a bucket is hot only when it is BOTH far above the mean and big enough
     # to threaten a (sender, receiver) bucket: tiny inputs otherwise mark
     # noise buckets hot and pay replication for nothing
@@ -256,28 +281,21 @@ def shuffle_join_phase_a(
             counts.append(ct)
             orders.append(order)
 
-    # one host read: overflow (psum), hot buckets (replicated), m (pmax)
+    # what the caller reads on the host, in one read: overflow (psum), hot
+    # buckets (replicated), m (pmax)
     overflow = collectives.reduce_sum(
         mesh, [ovf_p[s] + ovf_b[s] + ovf_hots[s] for s in rng]
     )
     m_glob = collectives.reduce_max(mesh, [c.max() for c in counts])
-    overflow, n_hot, m = torch.stack(
-        [overflow, n_hots[0].to(overflow.device), m_glob]
-    ).tolist()
+    meta = torch.stack([overflow, n_hots[0].to(overflow.device), m_glob])
     n_b = len(b_sorted_all[0])
     n_p = len(p_recv[0])
-    return ShuffleJoinPhaseA(
-        build_arrays=tuple([b_sorted_all[s][k] for s in rng] for k in range(n_b))
+    return (
+        tuple([b_sorted_all[s][k] for s in rng] for k in range(n_b))
         + ([brow_all_s[s] for s in rng],),
-        build_mask=bm_all_s,
-        probe_arrays=tuple([p_recv[s][k] for s in rng] for k in range(n_p)),
-        probe_mask=list(pm),
-        starts=starts,
-        counts=counts,
-        order=orders,
-        overflow=int(overflow),
-        n_hot_buckets=int(n_hot),
-        m=int(m),
+        bm_all_s,
+        tuple([p_recv[s][k] for s in rng] for k in range(n_p)),
+        list(pm), starts, counts, orders, meta,
     )
 
 
@@ -288,15 +306,24 @@ def shuffle_join_phase_b(mesh, a: ShuffleJoinPhaseA, n_keys: int, n_b_payload: i
 
     rowid_out = probe_rowid * m + slot reproduces the single-device pair
     emission sequence exactly (see module docstring)."""
-    m = max(a.m, 1)
-    b_pay = a.build_arrays[n_keys:n_keys + n_b_payload]
-    p_pay = a.probe_arrays[n_keys:-1]
-    p_rowid = a.probe_arrays[-1]
+    return _phase_b_stage(
+        mesh, a.build_arrays[n_keys:n_keys + n_b_payload], a.probe_arrays[n_keys:],
+        a.starts, a.counts, a.order, max(a.m, 1),
+    )
+
+
+@mesh_program
+def _phase_b_stage(mesh, b_pay, p_arrays, starts_, counts_, orders, m: int):
+    """Phase B's program, m static (in the key, as the reference's
+    recompile per m): the reference's shard_map at
+    sqlrs_tpu/parallel/dist_join.py:394."""
+    p_pay = p_arrays[:-1]
+    p_rowid = p_arrays[-1]
     b_cells = [[] for _ in b_pay]
     p_cells = [[] for _ in p_pay]
     rowid_out, alive = [], []
     for s in range(mesh.n_local):
-        starts, counts, order = a.starts[s], a.counts[s], a.order[s]
+        starts, counts, order = starts_[s], counts_[s], orders[s]
         nb_local = order.shape[0]
         j = torch.arange(m, dtype=torch.int64, device=starts.device)
         cand_pos = starts[:, None] + j[None, :]
@@ -305,7 +332,8 @@ def shuffle_join_phase_b(mesh, a: ShuffleJoinPhaseA, n_keys: int, n_b_payload: i
         for k, arr in enumerate(b_pay):
             b_cells[k].append(arr[s][cand].reshape(-1))
         for k, arr in enumerate(p_pay):
-            p_cells[k].append(torch.repeat_interleave(arr[s], m))
+            # repeat_interleave by a static m, as a broadcast: no host read
+            p_cells[k].append(arr[s][:, None].expand(-1, m).reshape(-1))
         rowid_out.append((p_rowid[s][:, None] * m + j[None, :]).reshape(-1))
         alive.append(have.reshape(-1))
     return b_cells, p_cells, rowid_out, alive
@@ -406,6 +434,7 @@ def _combine(mesh, cnt, rid, sums, mms):
     return cnt_g, sums_g, rid_g, mm_g
 
 
+@mesh_program(extra=dist_ops._chunk_key)
 def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
     """Fused ring join + per-dim-row aggregation, the SQL-reachable form of
     dist_join_groupby_ring: no host syncs, no exchange and hence no
@@ -424,7 +453,10 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
       min_rowid int64: minimum fact rowid among matches (INT64_MAX when
                 none) — the first-appearance order seed
       mm_outs   one (raw, mm_key) pair per mm_specs entry: the raw value
-                whose directed key is minimal in the row's match range."""
+                whose directed key is minimal in the row's match range.
+
+    One program, every ring step and the combine in it: the reference's
+    shard_map at sqlrs_tpu/parallel/dist_join.py:610."""
     n_dev = mesh.size
     n_mm = len(mm_specs)
     chunk = d_enc[0].shape[0]
@@ -482,6 +514,7 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
     )
 
 
+@mesh_program(extra=dist_ops._chunk_key)
 def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
     """Broadcast sibling of ring_agg_join for SMALL dim sides: each shard
     answers the FULL dim side's range queries, replicated by ONE tiled
@@ -489,7 +522,8 @@ def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_
     per-dim-row partials combine with one psum/pmin. Two collectives
     instead of n_dev ppermute steps — the right trade when the dim side
     fits in every shard. Same argument and return contract as
-    ring_agg_join."""
+    ring_agg_join. One program: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_join.py:752."""
     d_enc_g = collectives.all_gather(mesh, list(d_enc), tiled=True)
     d_ok_g = collectives.all_gather(mesh, list(d_ok), tiled=True)
     cnts, rids, sums, mms = [], [], [], []
@@ -509,12 +543,14 @@ def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_
     return _combine(mesh, cnts, rids, sums, mms)
 
 
+@mesh_program
 def pair_local_dedup(mesh, keys, vals, ok):
     """Shard-local sorted-unique over (key, value) pairs: sort the pairs
     and flag first occurrences. The building block of the cross-shard
     DISTINCT path: dedup locally, exchange by key hash
     (partition_shuffle), dedup again — every surviving (key, value) pair
-    is then globally unique and lives on exactly one shard."""
+    is then globally unique and lives on exactly one shard. One program:
+    the reference's shard_map at sqlrs_tpu/parallel/dist_join.py:786."""
     out_k, out_v, out_keep = [], [], []
     for k, v, o in zip(keys, vals, ok):
         kk = torch.where(o, k, _MAXK)

@@ -1,15 +1,19 @@
 """Distributed operators: shuffle, join + group-by, sort over a shard mesh.
 
 The port of sqlrs_tpu/parallel/dist_ops.py. Each `shard_map(local, ...)`
-program of the reference is a function here that runs its per-shard
-stages in a loop over this process's shards and calls
-parallel/collectives.py between them, so a `local` body is split at each
-collective. A sharded array is a list of this process's per-shard tensors,
-element j on `mesh.devices[j]` (global shard `mesh.offset + j`); a
-replicated result is one tensor (the first shard's copy), the same in every
-process. The join + group-by entry points take the whole (unsharded)
-arrays, as every process of a multi-process mesh holds them, and place
-only this process's shards.
+program of the reference is a program here (`utils/programs.mesh_program`):
+one function that runs its per-shard stages in a loop over this process's
+shards and calls parallel/collectives.py between them, so a `local` body is
+split at each collective in the code, but on a mesh whose shards share one
+card, in one process, the bodies and the collectives are captured into one
+CUDA graph and replayed after, one submission a call as the reference's
+one dispatch. A process-group mesh, or shards on several cards, runs the
+same function eagerly. A sharded array is a list of this process's
+per-shard tensors, element j on `mesh.devices[j]` (global shard
+`mesh.offset + j`); a replicated result is one tensor (the first shard's
+copy), the same in every process. The join + group-by entry points take
+the whole (unsharded) arrays, as every process of a multi-process mesh
+holds them, and place only this process's shards inside the program.
 
 - partition_shuffle: repartition rows by key hash through `all_to_all`
   with a fixed per-destination bucket capacity (padding carries a
@@ -22,10 +26,13 @@ only this process's shards.
 - dist_sort / dist_sort_rows: sample sort — splitters from a gathered
   sample, bucket all_to_all, one local sort per shard.
 
+No program body reads the host: the overflow counts leave a program as
+tensors and the `_checked` retries (and dist_sort_rows' caller) read them
+after it, once a try, as the reference reads its programs' outputs.
 `lax.scan` over ring steps is a Python loop over steps, each over the
 shards. The reference issues each step's ppermute before the probe that
 does not depend on it, so that XLA overlaps the two; the steps keep that
-order here, and overlapping them on the card is later work.
+order here (in a graph the two are still one stream's work, in order).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from sqlrs_tpu_torch.ops.hash_table import hash_keys
 from sqlrs_tpu_torch.ops.sort import _lex_argsort
 from sqlrs_tpu_torch.parallel import collectives
 from sqlrs_tpu_torch.parallel.mesh import live_blocks, replicate, row_blocks
+from sqlrs_tpu_torch.utils.programs import mesh_program
 
 _BLK = 128
 _MAXK = 2**63 - 1
@@ -44,6 +52,11 @@ _MAXK = 2**63 - 1
 # 128-wide block row (1 KiB of int64 keys, again per summed column), so a
 # pass holds a few GiB at most however many dim slots a shard holds
 _QUERY_CHUNK = 1 << 19
+
+
+def _chunk_key() -> tuple:
+    """The module state the range-query programs read (tests change it)."""
+    return (_QUERY_CHUNK,)
 
 
 def _overflow_scalar(mesh, xs) -> int:
@@ -182,12 +195,16 @@ def _exchange_rows(mesh, arrays, dests, bucket_capacity: int):
     )
 
 
+@mesh_program
 def partition_shuffle(mesh, keys, values, valid, bucket_capacity: int):
     """Repartition per-shard (keys, values, valid) so rows land on shard
     hash(key) % n_dev. Per-destination buckets are padded to
     `bucket_capacity` rows; overflow rows are dropped with a returned
     per-shard overflow count so callers can size up and retry. Returns
-    (keys, values, valid, overflow) per shard."""
+    (keys, values, valid, overflow) per shard.
+
+    One program: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_ops.py:165."""
     n_dev = mesh.size
     dests = [
         torch.where(v, hash_keys(k, 1 << 32) % n_dev, n_dev)
@@ -220,13 +237,17 @@ def _placed_fact_dim(mesh, fact_keys, fact_vals, dim_keys):
     )
 
 
+@mesh_program(extra=_chunk_key)
 def dist_join_groupby_broadcast(mesh, fact_keys, fact_vals, dim_keys, n_groups: int):
     """SELECT dim_row, sum(v), count(*) FROM fact JOIN dim USING (key)
     GROUP BY dim_row — dim replicated, fact sharded.
 
     Returns (sums[n_groups], counts[n_groups]) replicated. Group id == dim
     row index (dim keys unique — the fact→dimension join). One psum of
-    O(n_groups) is the only cross-shard traffic."""
+    O(n_groups) is the only cross-shard traffic.
+
+    One program, placement included: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_ops.py:193."""
     fk = row_blocks(mesh, fact_keys)
     fv = row_blocks(mesh, fact_vals)
     fm = live_blocks(mesh, int(fact_keys.shape[0]))
@@ -242,6 +263,7 @@ def dist_join_groupby_broadcast(mesh, fact_keys, fact_vals, dim_keys, n_groups: 
     return collectives.reduce_sum(mesh, sums), collectives.reduce_sum(mesh, cnts)
 
 
+@mesh_program(extra=_chunk_key)
 def dist_join_groupby_shuffle(
     mesh, fact_keys, fact_vals, dim_keys, n_groups: int, bucket_capacity: int
 ):
@@ -251,7 +273,10 @@ def dist_join_groupby_shuffle(
     Returns (sums, counts, overflow): overflow > 0 means a (sender,
     receiver) bucket exceeded bucket_capacity and ROWS WERE DROPPED — the
     result is NOT trustworthy and the caller must retry with a larger
-    capacity (dist_join_groupby_shuffle_checked does this) or raise."""
+    capacity (dist_join_groupby_shuffle_checked does this) or raise.
+
+    One program: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_ops.py:235."""
     fk, fv, fm, dk, drow, dm = _placed_fact_dim(mesh, fact_keys, fact_vals, dim_keys)
     fk, fv, fm, ovf_f = partition_shuffle(mesh, fk, fv, fm, bucket_capacity)
     dk, drow, dm, ovf_d = partition_shuffle(mesh, dk, drow, dm, bucket_capacity)
@@ -288,6 +313,7 @@ def dist_join_groupby_shuffle_checked(
         bucket_capacity = min(bucket_capacity * 4, cap_max)
 
 
+@mesh_program(extra=_chunk_key)
 def dist_join_groupby_salted(
     mesh, fact_keys, fact_vals, dim_keys, n_groups: int, bucket_capacity: int,
     hot_capacity: int = 1024, hot_factor: float = 4.0,
@@ -305,7 +331,8 @@ def dist_join_groupby_salted(
        Every fact row is processed exactly once, so replication cannot
        double-count.
 
-    Returns (sums, counts, overflow)."""
+    Returns (sums, counts, overflow). One program: the reference's
+    shard_map at sqlrs_tpu/parallel/dist_ops.py:366."""
     n_dev = mesh.size
     n_buckets = 4096
     fk, fv, fm, dk, drow, dm = _placed_fact_dim(mesh, fact_keys, fact_vals, dim_keys)
@@ -402,6 +429,7 @@ def dist_join_groupby_salted_checked(
         hot_capacity = min(hot_capacity * 4, d_pad)
 
 
+@mesh_program(extra=_chunk_key)
 def dist_join_groupby_ring(mesh, fact_keys, fact_vals, dim_keys, n_groups: int):
     """Ring join + group-by: both sides stay sharded and no key shuffle
     happens. Over n_dev ring steps each shard probes its resident fact rows
@@ -409,7 +437,9 @@ def dist_join_groupby_ring(mesh, fact_keys, fact_vals, dim_keys, n_groups: int):
     ring by ppermute. Memory per shard is O(N/p + G/p + G); the collective
     payload is the dim table once around the ring plus one O(G) psum.
 
-    Returns (sums[n_groups], counts[n_groups]) replicated."""
+    Returns (sums[n_groups], counts[n_groups]) replicated. One program,
+    every ring step in it: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_ops.py:482."""
     n_dev = mesh.size
     fk, fv, fm, dk, drow, dm = _placed_fact_dim(mesh, fact_keys, fact_vals, dim_keys)
     perm = collectives.ring_perm(n_dev)
@@ -457,7 +487,18 @@ def dist_sort_rows(
 
     Returns (sorted dkeys', payloads', alive', overflow) — overflow > 0
     means a (sender, receiver) bucket exceeded bucket_capacity and the
-    caller must retry with a larger capacity or materialize."""
+    caller must retry with a larger capacity or materialize. The overflow
+    is read on the host after the program, as the reference reads it."""
+    keys_out, pays_out, mask_out, overflow = _sort_rows_stage(
+        mesh, dkeys, payload_arrays, alive, bucket_capacity, rowid
+    )
+    return keys_out, pays_out, mask_out, int(overflow)
+
+
+@mesh_program
+def _sort_rows_stage(mesh, dkeys, payload_arrays, alive, bucket_capacity: int, rowid):
+    """dist_sort_rows as one program, its overflow (psum'd) a device
+    scalar: the reference's shard_map at sqlrs_tpu/parallel/dist_ops.py:611."""
     n_dev = mesh.size
     sample_per_shard = 64
     nk = len(dkeys)
@@ -510,19 +551,23 @@ def dist_sort_rows(
         for j, p in enumerate(pays_r):
             pays_out[j].append(p[perm])
         mask_out.append(mask[perm])
-    overflow = int(collectives.reduce_sum(mesh, ovfs))
+    overflow = collectives.reduce_sum(mesh, ovfs)
     return keys_out, pays_out, mask_out, overflow
 
 
 # ---- distributed sort --------------------------------------------------------
 
 
+@mesh_program
 def dist_sort(mesh, keys, bucket_capacity: int):
     """Sample sort of per-shard int keys: splitters from an all-gathered
     per-shard sample; rows all_to_all'd to their range owner; a local sort
     per shard. Returns (sorted keys, valid mask) per shard, each
     n_dev * bucket_capacity long — shard i holds range bucket i, valid rows
-    first, so the concatenation of valid rows is globally sorted."""
+    first, so the concatenation of valid rows is globally sorted.
+
+    One program: the reference's shard_map at
+    sqlrs_tpu/parallel/dist_ops.py:668."""
     n_dev = mesh.size
     sample_per_shard = 64
     samples = []

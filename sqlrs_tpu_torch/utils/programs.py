@@ -64,6 +64,14 @@ unset or not "0"):
   called, by a predicate on what it will run (see
   exec/expression_executor.py), never by catching an error.
 
+A sharded stage (`mesh_program`, the counterpart of the reference's
+`shard_map` programs) is one program over every shard of a mesh whose
+shards all lie on one device in one process: the per-shard bodies and the
+one-process collectives between them (device copies) are captured into
+one graph, keyed by the mesh too. A mesh with a process group, or with
+shards on several devices, runs the stage eagerly, with its reason
+counted in `stats.eager_routed`.
+
 On the CPU, with `SQLRS_TPU_FUSE=0`, inside another program's body, or
 when every input is empty, a program is its function, called directly.
 `SQLRS_TPU_COMPILE_CACHE` has no counterpart: a CUDA graph cannot outlive
@@ -279,11 +287,12 @@ class Stats:
         self.eager_routed: Counter = Counter()  # reason -> calls routed eagerly
         # kernel name -> launches made by graph replays (in its count too)
         self.replayed_launches: Counter = Counter()
+        self.replays_by: Counter = Counter()  # program name -> replays
 
     def as_dict(self) -> dict:
         d = dict(vars(self))
-        d["eager_routed"] = dict(self.eager_routed)
-        d["replayed_launches"] = dict(self.replayed_launches)
+        for k in ("eager_routed", "replayed_launches", "replays_by"):
+            d[k] = dict(d[k])
         return d
 
 
@@ -536,6 +545,7 @@ def _replay(name: str, e: _Entry, leaves):
     except RuntimeError as err:
         raise ProgramError(f"replaying program {name}: {err}") from err
     stats.replays += 1
+    stats.replays_by[name] += 1
     stats.output_copies += e.out_flat is not None
     for k, d in zip(_KERNELS, e.kernel_delta):
         if d:
@@ -672,6 +682,59 @@ def run(name: str, fn, args: tuple, extra) -> object:
     that fn does (the expression executor's program closes over its
     expression list and keys on its reprs)."""
     return _call(name, fn, args, {}, extra)
+
+
+# ---- sharded stages (the reference's shard_map programs) ----------------------------
+
+
+def mesh_key(mesh) -> tuple:
+    """The mesh as a static part of a stage's key: its global size, its
+    local shard count, the first local shard's global index and the
+    devices. Two meshes never share a graph."""
+    return ("mesh", mesh.size, mesh.n_local, mesh.offset, tuple(str(d) for d in mesh.devices))
+
+
+def mesh_eager_reason(mesh):
+    """Why a stage over `mesh` cannot be one program, or None. Decided
+    before the call: a process group's collectives are torch.distributed
+    calls, which a capture under gloo cannot hold (NCCL capture is not
+    done); shards on several devices would need one graph a device."""
+    if mesh.group is not None:
+        return "process-group mesh"
+    if len(set(mesh.devices)) > 1:
+        return "shards on more than one device"
+    return None
+
+
+class MeshProgram(Program):
+    """A sharded stage `fn(mesh, *args)` run as ONE program: every shard's
+    body and the collectives between the bodies in one graph, as the
+    reference's `shard_map` runs them in one SPMD program. Where
+    `mesh_eager_reason` names a reason, the stage runs eagerly and the
+    reason is counted. `extra()` returns module state the body reads,
+    which joins the key."""
+
+    def __init__(self, fn, name: str, extra=None) -> None:
+        super().__init__(fn, name)
+        self.extra = extra
+
+    def __call__(self, mesh, *args, **kwargs):
+        why = mesh_eager_reason(mesh)
+        if why is not None:
+            route_eagerly(why)
+            return self.fn(mesh, *args, **kwargs)
+        extra = mesh_key(mesh) + (self.extra() if self.extra is not None else ())
+        return _call(self.name, functools.partial(self.fn, mesh), args, kwargs, extra)
+
+
+def mesh_program(fn=None, *, extra=None):
+    """Decorator: `fn(mesh, ...)` becomes a sharded stage's program, keyed by
+    its qualified name, the mesh (`mesh_key`), `extra()` and the arguments."""
+
+    def wrap(f):
+        return MeshProgram(f, f"{f.__module__}.{f.__qualname__}", extra)
+
+    return wrap if fn is None else wrap(fn)
 
 
 # ---- checking mode (CPU tests) ----------------------------------------------------
