@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sqlrs_tpu_torch.utils import profiling
+
 NULL_CODE = -1  # code used in invalid slots
 
 _PREFIX_BYTES = 48
@@ -82,13 +84,21 @@ class _MatchTable:
         n = len(dictionary)
         if len(self.table) < n:
             start = len(self.table)
-            new = np.fromiter(
-                (self.fn(dictionary.lookup(i)) for i in range(start, n)),
-                dtype=self.table.dtype,
-                count=n - start,
-            )
-            self.table = np.concatenate([self.table, new])
+            rec = profiling.RECORDER
+            if rec is None:
+                self._extend(dictionary, start, n)
+            else:
+                rec.call("strings.match_table", "strings", n - start,
+                         self._extend, dictionary, start, n)
         return self.table[:n]
+
+    def _extend(self, dictionary, start: int, n: int) -> None:
+        new = np.fromiter(
+            (self.fn(dictionary.lookup(i)) for i in range(start, n)),
+            dtype=self.table.dtype,
+            count=n - start,
+        )
+        self.table = np.concatenate([self.table, new])
 
 
 def _load_intern_lib():
@@ -285,6 +295,14 @@ class StringDictionary:
         n = len(self._values)
         if self._ranks is not None and len(self._ranks) == n:
             return self._ranks
+        rec = profiling.RECORDER
+        if rec is None:
+            return self._rank(n)
+        return rec.call("strings.ranks", "strings", n, self._rank, n)
+
+    def _rank(self, n: int) -> np.ndarray:
+        """ranks()'s sort of the whole dictionary, or merge of its new
+        strings into the cached order."""
         n_old = 0 if self._sorted_codes is None else len(self._sorted_codes)
         k = n - n_old
         if 0 < k <= max(n_old // 10, 1024) and n_old > 0:

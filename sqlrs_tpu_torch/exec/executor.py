@@ -60,7 +60,7 @@ from sqlrs_tpu_torch.ops.sort import orderable_key, sort_rows
 from sqlrs_tpu_torch.plan import physical as P
 from sqlrs_tpu_torch.storage.memory import DataTable, null_column
 from sqlrs_tpu_torch.types import LogicalType, numpy_dtype_for
-from sqlrs_tpu_torch.utils import programs
+from sqlrs_tpu_torch.utils import profiling, programs
 from sqlrs_tpu_torch.utils.programs import program
 
 _INT64_MAX = 2**63 - 1
@@ -91,11 +91,13 @@ class Executor:
         )
         if method is None:
             raise not_ported(f"operator {type(op).__name__}")
-        if self.profile is None:
+        if self.profile is None and profiling.RECORDER is None:
             return method(op)
-        with self.profile.measure(op.explain_line()[:60]) as stats:
+        label = op.explain_line()[:60]
+        with profiling.operator(self.profile, label, "op:" + label, "operators") as stats:
             out = method(op)
-            stats.rows_out = out.num_rows
+            if stats is not None:
+                stats.rows_out = out.num_rows
         return out
 
     # ---- scans -------------------------------------------------------------

@@ -33,6 +33,7 @@ strategies of parallel/dist_ops.py and parallel/dist_join.py.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -53,6 +54,7 @@ from sqlrs_tpu_torch.parallel.mesh import (
 )
 from sqlrs_tpu_torch.plan import physical as P
 from sqlrs_tpu_torch.types import LogicalType, ScalarValue
+from sqlrs_tpu_torch.utils import profiling
 from sqlrs_tpu_torch.utils.programs import mesh_program
 
 _INT64_MAX = 2**63 - 1
@@ -140,7 +142,12 @@ def shard_batch(batch: DeviceBatch, mesh) -> ShardedBatch:
 
 def _host_sum(mesh, xs) -> int:
     """Sum over shards of per-shard tensors, read once."""
-    return int(collectives.reduce_sum(mesh, [x.sum(dtype=torch.int64) for x in xs]))
+    return _read_sum(mesh, [x.sum(dtype=torch.int64) for x in xs])
+
+
+def _read_sum(mesh, sums) -> int:
+    """The sum over shards (and processes) of per-shard scalars: a host read."""
+    return int(collectives.reduce_sum(mesh, sums))
 
 
 class DistributedExecutor:
@@ -158,19 +165,29 @@ class DistributedExecutor:
 
     def run(self, op: P.PhysicalOperator) -> DeviceBatch:
         out = self.execute(op)
-        return out.to_device_batch() if isinstance(out, ShardedBatch) else out
+        if not isinstance(out, ShardedBatch):
+            return out
+        rec = profiling.RECORDER
+        if rec is None:
+            return out.to_device_batch()
+        return rec.call("collect", "sharded engine", None, out.to_device_batch)
 
     def execute(self, op: P.PhysicalOperator):
         name = type(op).__name__.removeprefix("Physical")
         method = getattr(self, "_dexec_" + name, None)
         if method is None or (self.mesh.group is not None and _interns_by_row([op])):
             return self._fallback(op)
-        if self.profile is None:
+        if self.profile is None and profiling.RECORDER is None:
             return method(op)
-        with self.profile.measure("dist:" + op.explain_line()[:54]) as stats:
+        label = "dist:" + op.explain_line()[:54]
+        with profiling.operator(self.profile, label, label, "sharded engine") as stats:
             out = method(op)
+        if stats is not None:
             if isinstance(out, ShardedBatch):
-                stats.rows_out = _host_sum(self.mesh, out.alive)
+                # the live rows are read once the statement has ended: a
+                # read here would drain the device inside the statement
+                sums = [x.sum(dtype=torch.int64) for x in out.alive]
+                self.profile.defer_rows(stats, functools.partial(_read_sum, self.mesh, sums))
             else:
                 stats.rows_out = out.num_rows
         return out

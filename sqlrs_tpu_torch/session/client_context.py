@@ -17,6 +17,7 @@ from typing import Any, Optional
 from sqlrs_tpu_torch.data import DeviceBatch
 from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.types import LogicalType
+from sqlrs_tpu_torch.utils import profiling
 from sqlrs_tpu_torch.utils.render import batch_to_rows, batches_to_slt_lines
 
 
@@ -82,10 +83,18 @@ class ClientContext:
     def interrupt(self) -> None:
         self.interrupted = True
 
+    # While spans are recorded (utils/profiling.py), a prepared statement's
+    # work is a `statement` span, its parse, bind, optimize and plan each a
+    # `frontend.*` span inside it; while not, each site tests RECORDER alone.
+
     def prepare(self, sql: str) -> PreparedStatementData:
         from sqlrs_tpu_torch.parser import parse_one
 
-        return self._prepare_stmt(sql, parse_one(sql))
+        rec = profiling.RECORDER
+        if rec is None:
+            return self._prepare_stmt(sql, parse_one(sql))
+        return rec.statement(lambda: self._prepare_stmt(
+            sql, rec.call("frontend.parse", "frontend", None, parse_one, sql)))
 
     def _prepare_stmt(self, sql: str, stmt) -> PreparedStatementData:
         from sqlrs_tpu_torch.binder.binder import Binder
@@ -99,19 +108,31 @@ class ClientContext:
             explain_tree as explain_physical,
         )
 
-        bound = Binder(self.db).bind(stmt)
+        rec = profiling.RECORDER
+        bind = Binder(self.db).bind
+        if rec is None:
+            bound = bind(stmt)
+        else:
+            bound = rec.call("frontend.bind", "frontend", None, bind, stmt)
         plan = bound.plan
         # explain materializes its three plan strings at prepare time, like
         # the reference's v2 (physical_explain.rs:12-40) and the v1 session
         # path (session/database.py _run_statement)
         if isinstance(plan, LogicalExplain):
             plan.plan_strings["logical_plan"] = explain_logical(plan.children[0])
-        plan = optimize(plan)
+        if rec is None:
+            plan = optimize(plan)
+        else:
+            plan = rec.call("frontend.optimize", "frontend", None, optimize, plan)
         if isinstance(plan, LogicalExplain):
             plan.plan_strings["optimized_logical_plan"] = explain_logical(
                 plan.children[0]
             )
-        phys = PhysicalPlanGenerator().create_plan(plan)
+        create = PhysicalPlanGenerator().create_plan
+        if rec is None:
+            phys = create(plan)
+        else:
+            phys = rec.call("frontend.plan", "frontend", None, create, plan)
         if isinstance(plan, LogicalExplain):
             phys.plan_strings = dict(plan.plan_strings)
             phys.plan_strings["physical_plan"] = explain_physical(
@@ -127,7 +148,10 @@ class ClientContext:
 
     def query(self, sql: str) -> MaterializedQueryResult:
         """One-shot: prepare + execute (reference client_context.rs:34)."""
-        return self.pending_query(sql).execute()
+        rec = profiling.RECORDER
+        if rec is None:
+            return self.pending_query(sql).execute()
+        return rec.statement(lambda: self.pending_query(sql).execute())
 
     def query_all(self, sql: str) -> list[MaterializedQueryResult]:
         """Every statement in `sql`, in order. The v1 session path runs all
@@ -136,15 +160,32 @@ class ClientContext:
         parse_one's single-statement restriction."""
         from sqlrs_tpu_torch.parser import parse
 
+        rec = profiling.RECORDER
+        if rec is None:
+            stmts = parse(sql)
+        else:
+            stmts = rec.call("frontend.parse", "frontend", None, parse, sql)
         results = []
-        for stmt in parse(sql):
-            self.interrupted = False
-            pending = PendingQueryResult(self, self._prepare_stmt(sql, stmt))
-            self._active_pending = pending
-            results.append(pending.execute())
+        for stmt in stmts:
+            if rec is None:
+                results.append(self._run_one(sql, stmt))
+            else:
+                results.append(rec.statement(self._run_one, sql, stmt))
         return results
 
+    def _run_one(self, sql: str, stmt) -> MaterializedQueryResult:
+        self.interrupted = False
+        pending = PendingQueryResult(self, self._prepare_stmt(sql, stmt))
+        self._active_pending = pending
+        return pending.execute()
+
     def execute_prepared(self, prepared: PreparedStatementData) -> MaterializedQueryResult:
+        rec = profiling.RECORDER
+        if rec is None:
+            return self._materialize(prepared)
+        return rec.statement(self._materialize, prepared)
+
+    def _materialize(self, prepared: PreparedStatementData) -> MaterializedQueryResult:
         return MaterializedQueryResult(
             prepared.names, prepared.types, self._execute_physical(prepared)
         )

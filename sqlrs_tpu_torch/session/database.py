@@ -33,6 +33,7 @@ from sqlrs_tpu_torch.plan.logical import LogicalExplain, explain_tree as explain
 from sqlrs_tpu_torch.plan.physical import PhysicalPlanGenerator, explain_tree as explain_physical
 from sqlrs_tpu_torch.storage.csv import CsvConfig, load_csv
 from sqlrs_tpu_torch.storage.memory import DataTable
+from sqlrs_tpu_torch.utils import profiling
 from sqlrs_tpu_torch.utils.render import batches_to_slt_lines
 
 
@@ -82,9 +83,7 @@ class Database:
         # relative csv paths in SQL resolve against base_dir (the reference
         # resolves against its repo root when running the slt suite)
         self.base_dir = base_dir or os.getcwd()
-        from sqlrs_tpu_torch.utils.profiling import profiling_enabled
-
-        self.profile_enabled = profile or profiling_enabled()
+        self.profile_enabled = profile or profiling.profiling_enabled()
         self.last_profile = None  # QueryProfile of the most recent statement
 
     # ---- storage helpers ------------------------------------------------------
@@ -160,13 +159,35 @@ class Database:
 
     def run(self, sql: str) -> list[DeviceBatch]:
         """Execute all statements; returns the last statement's batches."""
-        stmts = parse(sql)
-        if not stmts:
-            return []
+        rec = profiling.RECORDER
+        if rec is not None:
+            return self._run_recorded(rec, sql)
         out: list[DeviceBatch] = []
-        for stmt in stmts:
+        for stmt in parse(sql):
             out = self._run_statement(stmt)
+            self._settle_profile()
         return out
+
+    def _run_recorded(self, rec, sql: str) -> list[DeviceBatch]:
+        """run() while spans are recorded (utils/profiling.py): each statement
+        a `statement` span, the first holding the parse of the whole text."""
+
+        def first():
+            stmts = rec.call("frontend.parse", "frontend", None, parse, sql)
+            return stmts, self._run_statement(stmts[0]) if stmts else []
+
+        stmts, out = rec.statement(first)
+        self._settle_profile()
+        for stmt in stmts[1:]:
+            out = rec.statement(self._run_statement, stmt)
+            self._settle_profile()
+        return out
+
+    def _settle_profile(self) -> None:
+        """The profile's row counts that read the device, read after the
+        statement."""
+        if self.last_profile is not None:
+            self.last_profile.settle()
 
     def run_lines(self, sql: str) -> list[str]:
         """Execute and render rows with slt rules (one string per row)."""
@@ -181,25 +202,32 @@ class Database:
         return "\n".join(lines)
 
     def _run_statement(self, stmt: ast.Statement) -> list[DeviceBatch]:
-        binder = Binder(self)
-        bound = binder.bind(stmt)
+        rec = profiling.RECORDER  # while on, each frontend phase is a span
+        bind = Binder(self).bind
+        if rec is None:
+            bound = bind(stmt)
+        else:
+            bound = rec.call("frontend.bind", "frontend", None, bind, stmt)
         plan = bound.plan
 
         if isinstance(plan, LogicalExplain):
             plan.plan_strings["logical_plan"] = explain_logical(plan.children[0])
 
-        plan = self._optimize(plan)
+        if rec is None:
+            plan = self._optimize(plan)
+        else:
+            plan = rec.call("frontend.optimize", "frontend", None, self._optimize, plan)
 
-        phys = PhysicalPlanGenerator().create_plan(plan)
+        create = PhysicalPlanGenerator().create_plan
+        if rec is None:
+            phys = create(plan)
+        else:
+            phys = rec.call("frontend.plan", "frontend", None, create, plan)
         if isinstance(plan, LogicalExplain):
             phys.plan_strings = dict(plan.plan_strings)
             phys.plan_strings["physical_plan"] = explain_physical(phys.children[0])
 
-        profile = None
-        if self.profile_enabled:
-            from sqlrs_tpu_torch.utils.profiling import QueryProfile
-
-            profile = QueryProfile()
+        profile = profiling.QueryProfile() if self.profile_enabled else None
         if self.mesh is not None:
             from sqlrs_tpu_torch.parallel.dist_executor import DistributedExecutor
 

@@ -24,6 +24,7 @@ from sqlrs_tpu_torch.data.batch import host_to_device, scalars_to_numpy, storage
 from sqlrs_tpu_torch.data.strings import GLOBAL_STRINGS, NULL_CODE
 from sqlrs_tpu_torch.errors import StorageError
 from sqlrs_tpu_torch.types import LogicalType, ScalarValue, numpy_dtype_for
+from sqlrs_tpu_torch.utils import profiling
 
 TILE = 1024  # row-tile granularity of the host master copy
 
@@ -102,14 +103,12 @@ class DataTable:
     def _device_columns(self, device: torch.device) -> list[Column]:
         snap = self._snapshots.get(device)
         if snap is None:
-            snap = [
-                Column(
-                    t,
-                    host_to_device(storage_np(t, self._data[i][: self._num_rows]), device),
-                    host_to_device(self._valid[i][: self._num_rows], device),
-                )
-                for i, t in enumerate(self.types)
-            ]
+            rec = profiling.RECORDER
+            if rec is None:
+                snap = self._copy_columns(device)
+            else:
+                snap = rec.call("storage.first_scan", "storage", self._num_rows,
+                                self._copy_columns, device)
             # the snapshot's address stays fixed until the table changes:
             # programs read it in place (utils/programs.py)
             from sqlrs_tpu_torch.utils.programs import mark_resident
@@ -117,6 +116,16 @@ class DataTable:
             mark_resident(*(t for c in snap for t in (c.data, c.valid)))
             self._snapshots[device] = snap
         return snap
+
+    def _copy_columns(self, device: torch.device) -> list[Column]:
+        return [
+            Column(
+                t,
+                host_to_device(storage_np(t, self._data[i][: self._num_rows]), device),
+                host_to_device(self._valid[i][: self._num_rows], device),
+            )
+            for i, t in enumerate(self.types)
+        ]
 
     def scan(
         self,
@@ -175,6 +184,14 @@ def import_tables(db, tables: dict) -> None:
     means no NULLs. Types are named by string (`LogicalType[name]`), so a
     caller holding another engine's tables needs nothing of this package
     but the function."""
+    rec = profiling.RECORDER
+    if rec is None:
+        _import_tables(db, tables)
+    else:
+        rec.call("storage.import", "storage", len(tables), _import_tables, db, tables)
+
+
+def _import_tables(db, tables: dict) -> None:
     from sqlrs_tpu_torch.catalog.catalog import ColumnDefinition
 
     for name, cols in tables.items():

@@ -78,6 +78,11 @@ when every input is empty, a program is its function, called directly.
 its process, and what does persist, the nvcc build of each kernel, is
 cached in build/kernels/.
 
+While spans are recorded (utils/profiling.py), a first sighting is a
+`programs.first_run` span, a capture `programs.capture`, a replay
+`programs.replay` (the program's name its detail) holding its input copy,
+`programs.pack`.
+
 `checking()` holds the programs to that contract on the CPU: inside it,
 every program body runs under a dispatch mode that raises on an operation
 that would read the host or whose output shape depends on the data, and
@@ -98,6 +103,8 @@ from collections import Counter, OrderedDict
 
 import torch
 import torch.utils._python_dispatch
+
+from sqlrs_tpu_torch.utils import profiling
 
 MAX_ENTRIES = 512  # signatures kept a device (the reference's _FUSED_CACHE_MAX)
 _ALIGN = 256  # byte alignment of each tensor in a flat input or output region
@@ -537,8 +544,20 @@ def _capture(cache: DeviceCache, name: str, fn, tree, leaves) -> _Entry:
 
 
 def _replay(name: str, e: _Entry, leaves):
+    rec = profiling.RECORDER
+    if rec is not None:
+        return rec.call("programs.replay", "programs", name, _replay_in, name, e, leaves, rec)
+    return _replay_in(name, e, leaves, None)
+
+
+def _replay_in(name: str, e: _Entry, leaves, rec):
+    """A replay's work; `rec` the recorder while spans are recorded."""
     if e.in_flat is not None:
-        _pack([leaves[i] for i in e.copied], e.in_offs, e.in_flat.shape[0], e.in_flat)
+        region = ([leaves[i] for i in e.copied], e.in_offs, e.in_flat.shape[0], e.in_flat)
+        if rec is None:
+            _pack(*region)
+        else:
+            rec.call("programs.pack", "programs", None, _pack, *region)
         stats.input_copies += 1
     try:
         e.graph.replay()
@@ -572,19 +591,30 @@ def _outputs(e: _Entry, leaves):
     return _unflatten(e.out_tree, iter(out))
 
 
-def _emulate(fn, tree, leaves):
+def _emulate(name: str, fn, tree, leaves):
     """A call as a capture and a replay would lay it out, without a graph
     (`emulating()`, for the CPU tests): the inputs copied into a region,
-    the body run on its views, the outputs packed and cloned out."""
+    the body run on its views, the outputs packed and cloned out; its spans
+    are a replay's."""
+    rec = profiling.RECORDER
+    with _inside():
+        if rec is None:
+            return _emulate_in(fn, tree, leaves, None)
+        return rec.call("programs.replay", "programs", name, _emulate_in, fn, tree, leaves, rec)
+
+
+def _emulate_in(fn, tree, leaves, rec):
     copied = _copied(leaves)
     in_offs, in_total = _slots([leaves[i] for i in copied])
-    with _inside():
-        in_flat = torch.empty(max(in_total, 1), dtype=torch.uint8, device=leaves[0].device)
-        if in_total:
-            _pack([leaves[i] for i in copied], in_offs, in_total, in_flat[:in_total])
-        body_out = _body(fn, tree, leaves, copied, in_offs, in_flat)
-        return _outputs(_entry(copied, in_offs, in_flat, in_total, body_out, lambda t: t),
-                        leaves)
+    in_flat = torch.empty(max(in_total, 1), dtype=torch.uint8, device=leaves[0].device)
+    if in_total:
+        region = ([leaves[i] for i in copied], in_offs, in_total, in_flat[:in_total])
+        if rec is None:
+            _pack(*region)
+        else:
+            rec.call("programs.pack", "programs", None, _pack, *region)
+    body_out = _body(fn, tree, leaves, copied, in_offs, in_flat)
+    return _outputs(_entry(copied, in_offs, in_flat, in_total, body_out, lambda t: t), leaves)
 
 
 _EMULATE = False
@@ -633,7 +663,7 @@ def _call(name: str, fn, args, kwargs, extra=()):
         return fn(*args, **kwargs)
     if leaves[0].device.type != "cuda":
         if _EMULATE:
-            return _emulate(lambda a, k: fn(*a, **k), tree, leaves)
+            return _emulate(name, lambda a, k: fn(*a, **k), tree, leaves)
         stats.inline += 1
         return fn(*args, **kwargs)
     cache = device_cache(leaves[0].device)
@@ -643,10 +673,18 @@ def _call(name: str, fn, args, kwargs, extra=()):
     if e is None:
         cache.put(key, _SEEN)
         stats.warmups += 1
+        rec = profiling.RECORDER
         with _inside():
-            return fn(*args, **kwargs)
+            if rec is None:
+                return fn(*args, **kwargs)
+            return rec.call("programs.first_run", "programs", name, fn, *args, **kwargs)
     if e is _SEEN:
-        e = _capture(cache, name, lambda a, k: fn(*a, **k), tree, leaves)
+        rec = profiling.RECORDER
+        if rec is None:
+            e = _capture(cache, name, lambda a, k: fn(*a, **k), tree, leaves)
+        else:
+            e = rec.call("programs.capture", "programs", name, _capture, cache, name,
+                         lambda a, k: fn(*a, **k), tree, leaves)
         cache.pool_bytes += e.pool_bytes
         if cache.pool_bytes > cache.max_pool_bytes:
             # past the bound: this graph runs once, then every graph of the
@@ -837,7 +875,7 @@ class Checker:
         self._inputs = {t.untyped_storage().data_ptr() for t in leaves if t.numel()}
         try:
             if _EMULATE:
-                out = _emulate(lambda a, k: fn(*a, **k), tree, leaves)
+                out = _emulate(name, lambda a, k: fn(*a, **k), tree, leaves)
             else:
                 with _inside():
                     out = fn(*args, **kwargs)

@@ -6,14 +6,13 @@ sqlrs_tpu_torch.Database(profile=True, device="cpu"), on one device and
 over 8 CPU shards in both engines. Each statement's operator list, as
 (op label, depth, rows_out) in the order the operators finished, must be
 the reference's: the labels are the plan's explain lines, the depths come
-from measure()'s stack (the fused-route bail-out and delegated operators
+from the operator boundary's stack (the fused-route bail-out and delegated operators
 re-enter the executor), and rows_out is the batch's row count (the live
 rows of a sharded batch). Times are host-clock and are not compared.
 """
 
 import numpy as np
 import pytest
-import torch
 
 import sqlrs_tpu
 import sqlrs_tpu_torch
@@ -196,10 +195,14 @@ def test_measure_self_time_arithmetic():
     import time
 
     prof = profiling.QueryProfile()
-    with prof.measure("root"):
-        with prof.measure("child") as c:
+
+    def measure(label):  # the operator boundary, without a span
+        return profiling.operator(prof, label, None, "")
+
+    with measure("root"):
+        with measure("child") as c:
             time.sleep(0.02)
-            with prof.measure("grandchild"):
+            with measure("grandchild"):
                 time.sleep(0.02)
             c.rows_out = 5
         time.sleep(0.01)
@@ -211,24 +214,6 @@ def test_measure_self_time_arithmetic():
     assert root.wall_s >= child.wall_s >= grand.wall_s > 0.015
 
 
-@pytest.mark.parametrize(
-    "name,bw",
-    [
-        ("NVIDIA H100 80GB HBM3", 3.35e12),
-        ("NVIDIA H100 PCIe", 2.0e12),
-        ("NVIDIA A100-SXM4-80GB", 50e9),
-    ],
-)
-def test_chip_bandwidth_by_device_name(monkeypatch, name, bw):
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: name)
-    assert profiling.chip_bandwidth("cuda:0") == bw
-    assert profiling.chip_bandwidth("cpu") == 50e9
-    stats = profiling.OpStats("Filter", rows_out=1000, self_s=1e-3)
-    assert stats.roofline_fraction("cuda:0", bytes_per_row=16) == pytest.approx(
-        1e6 * 16 / bw
-    )
-
-
 def test_trace_writes_chrome_trace(tmp_path):
     db = sqlrs_tpu_torch.Database(device="cpu")
     db.run("create table z(a int); insert into z values (1), (2)")
@@ -238,6 +223,13 @@ def test_trace_writes_chrome_trace(tmp_path):
 
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the statement's spans, a track of their own on the records' clock
+    spans = [e for e in events if e.get("pid") == "sqlrs_tpu_torch spans"]
+    assert [e["name"] for e in spans if e["cat"] == "session"] == ["statement"]
+    root = next(e for e in spans if e["name"] == "statement")
+    ops = [e for e in events if str(e.get("name", "")).startswith("aten::")]
+    assert all(root["ts"] <= e["ts"] and e["ts"] + e["dur"] <= root["ts"] + root["dur"]
+               for e in ops)
 
 
 def test_streaming_limit_touches_chunks_not_table():
