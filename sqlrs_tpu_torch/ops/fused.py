@@ -67,12 +67,13 @@ def mask_count(keep_data, keep_valid) -> int:
     return int(torch.logical_and(keep_data, keep_valid).sum())
 
 
-def _compact_index_body(keep_data, keep_valid, count: int):
+def _compact_index_body(keep_data, keep_valid, count: int, fill: int = 0):
+    """compact_indices' body; a slot past the kept rows holds `fill`."""
     keep = torch.logical_and(keep_data, keep_valid)
     n = keep.shape[0]
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1
     slot = torch.where(keep & (rank < count), rank, count)
-    out = torch.zeros(count + 1, dtype=torch.int64, device=keep.device)
+    out = torch.full((count + 1,), fill, dtype=torch.int64, device=keep.device)
     out.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=keep.device))
     return out[:count]
 

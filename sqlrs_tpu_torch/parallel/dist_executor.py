@@ -429,7 +429,9 @@ class DistributedExecutor:
             rewrite_expr,
             visit_expr,
         )
+        from sqlrs_tpu_torch.ops.hash_table import next_pow2
         from sqlrs_tpu_torch.ops.sort import orderable_key
+        from sqlrs_tpu_torch.parallel import dist_join
         from sqlrs_tpu_torch.parallel.dist_join import broadcast_agg_join, ring_agg_join
 
         policy = getattr(self.db, "dist_join_policy", "auto")
@@ -534,11 +536,16 @@ class DistributedExecutor:
             and right.rowid is None
         )
         use_ring = True
+        capacity = None
         if ok and policy == "auto":
             # small builds take the broadcast-fused kernel (ONE all_gather +
             # one probe pass); large builds rotate chunks through the ring
             min_build = getattr(self.db, "dist_ring_min_build", 1 << 16)
-            use_ring = _host_sum(self.mesh, left.alive) >= min_build
+            live = _host_sum(self.mesh, left.alive)
+            use_ring = live >= min_build
+            # the dim rows d_ok lets live (a subset of left.alive), a bound
+            # in the broadcast program's key: it answers only those rows
+            capacity = next_pow2(max(live, 1))
         if not ok:
             # fall back: re-dispatch through the normal agg-over-join path
             child = self.execute(op.children[0])
@@ -644,7 +651,11 @@ class DistributedExecutor:
                 sum_cols.append(vcs)
                 mm_specs.append((mks, [x.data for x in c]))
 
-        fused_fn = ring_agg_join if use_ring else broadcast_agg_join
+        fused_fn = (
+            ring_agg_join if use_ring
+            else functools.partial(broadcast_agg_join, capacity=capacity)
+        )
+        before = dist_join.stats().as_dict()
         counts, sums, min_rowid, mm_outs = fused_fn(
             self.mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok,
         )
@@ -653,6 +664,10 @@ class DistributedExecutor:
             d_counts, d_sums = self._distinct_dim_partials(
                 fused_fn, d_arg_col, f_enc, f_ok, right, d_enc, d_ok, d_need_sum,
             )
+        rec = profiling.RECORDER
+        if rec is not None and not use_ring:
+            after = dist_join.stats().as_dict()
+            rec.annotate("dist:", {k: after[k] - before[k] for k in after})
 
         # ---- dim-sized partial batch + the distributed grouped agg ----------
         ng = len(groups)

@@ -48,13 +48,13 @@ from dataclasses import dataclass
 
 import torch
 
-from sqlrs_tpu_torch.ops.fused import prefix_sum
+from sqlrs_tpu_torch.ops.fused import _compact_index_body, prefix_sum
 from sqlrs_tpu_torch.ops.hash_table import _mix64, umod
 from sqlrs_tpu_torch.ops.join import _pairs_phase_a
 from sqlrs_tpu_torch.ops.sort import _lex_argsort
 from sqlrs_tpu_torch.parallel import collectives, dist_ops
 from sqlrs_tpu_torch.parallel.dist_ops import _bucketize_rows, _exchange_rows
-from sqlrs_tpu_torch.utils.programs import mesh_program
+from sqlrs_tpu_torch.utils.programs import MeshProgram, mesh_program
 
 _N_BUCKETS = 4096
 _BLK = 128
@@ -514,16 +514,81 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
     )
 
 
-@mesh_program(extra=dist_ops._chunk_key)
-def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
+class Stats:
+    """What `broadcast_agg_join` did in this process, as host integers read
+    from shapes alone (reset by `reset_stats`)."""
+
+    def __init__(self) -> None:
+        self.broadcast_calls = 0  # calls of broadcast_agg_join
+        self.compacted_calls = 0  # of them, the calls that compacted the dim rows
+        self.gathered_rows = 0    # dim rows gathered onto this process's shards
+        self.range_queries = 0    # range queries those shards answered
+
+    def as_dict(self) -> dict:
+        return dict(vars(self))
+
+
+_STATS = Stats()
+
+
+def stats() -> Stats:
+    return _STATS
+
+
+def reset_stats() -> None:
+    _STATS.__init__()
+
+
+def _scatter_back(n: int, pos, x, fill):
+    """x's slots at their dim positions in an n-long array of `fill`; a slot
+    left over (position n) writes to a dump slot past the end."""
+    out = torch.full((n + 1,), fill, dtype=x.dtype, device=x.device)
+    out[pos] = x
+    return out[:n]
+
+
+class _BroadcastProgram(MeshProgram):
+    """broadcast_agg_join's program and its host side: the compaction's
+    gate and the counts of `stats()`, made at every call."""
+
+    def __call__(self, mesh, *args, capacity: int | None = None):
+        d_enc = args[5]
+        gathered = d_enc[0].shape[0] * mesh.size
+        if capacity is not None and capacity * 4 > gathered:
+            capacity = None
+        st = _STATS
+        st.broadcast_calls += 1
+        st.compacted_calls += int(capacity is not None)
+        st.gathered_rows += mesh.n_local * gathered
+        st.range_queries += mesh.n_local * (gathered if capacity is None else capacity)
+        return super().__call__(mesh, *args, capacity=capacity)
+
+
+def _broadcast_program(fn):
+    return _BroadcastProgram(fn, f"{fn.__module__}.{fn.__qualname__}", dist_ops._chunk_key)
+
+
+@_broadcast_program
+def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok,
+                       capacity: int | None = None):
     """Broadcast sibling of ring_agg_join for SMALL dim sides: each shard
-    answers the FULL dim side's range queries, replicated by ONE tiled
+    answers the dim side's range queries, replicated by ONE tiled
     all_gather (O(G) bytes), against its locally sorted fact rows, and the
     per-dim-row partials combine with one psum/pmin. Two collectives
     instead of n_dev ppermute steps — the right trade when the dim side
     fits in every shard. Same argument and return contract as
-    ring_agg_join. One program: the reference's shard_map at
-    sqlrs_tpu/parallel/dist_join.py:752."""
+    ring_agg_join, except that a dead dim row's min/max raw value is not
+    defined (no caller reads it). One program: the reference's shard_map
+    at sqlrs_tpu/parallel/dist_join.py:752.
+
+    `capacity` (static, in the key) bounds the live dim rows (d_ok) over
+    every shard, as the caller read them on the host. Where it is at most
+    a quarter of the gathered rows, each shard compacts the live rows into
+    `capacity` slots in their gathered order, answers those alone and
+    scatters the answers back to dim layout: every live row's partials are
+    bit-equal to the uncompacted answer's, since each depends on its own
+    query alone. Otherwise (and without a capacity) every gathered row is
+    answered."""
     d_enc_g = collectives.all_gather(mesh, list(d_enc), tiled=True)
     d_ok_g = collectives.all_gather(mesh, list(d_ok), tiled=True)
     cnts, rids, sums, mms = [], [], [], []
@@ -533,13 +598,25 @@ def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_
         k2d, rid_s, sum_tables, mm_sorted = _fact_tables(
             f_enc[s], f_ok[s], f_rowid[s], scols, mmflat
         )
+        q_enc, q_ok = d_enc_g[s], d_ok_g[s]
+        if capacity is not None:
+            n = q_enc.shape[0]
+            # each live row's gathered position, in order; n in a slot left over
+            pos = _compact_index_body(q_ok, q_ok, capacity, fill=n)
+            q_ok = pos < n
+            q_enc = q_enc[torch.clamp(pos, max=n - 1)]
         cnt, rid, sm, mm = _range_answers(
-            k2d, f_enc[s].shape[0], rid_s, sum_tables, mm_sorted, d_enc_g[s], d_ok_g[s]
+            k2d, f_enc[s].shape[0], rid_s, sum_tables, mm_sorted, q_enc, q_ok
         )
+        mm = [(torch.where(cnt > 0, k, _MAXK), r) for k, r in mm]
+        if capacity is not None:
+            cnt, rid = _scatter_back(n, pos, cnt, 0), _scatter_back(n, pos, rid, _MAXK)
+            sm = [_scatter_back(n, pos, x, 0) for x in sm]
+            mm = [(_scatter_back(n, pos, k, _MAXK), _scatter_back(n, pos, r, 0)) for k, r in mm]
         cnts.append(cnt)
         rids.append(rid)
         sums.append(sm)
-        mms.append([(torch.where(cnt > 0, k, _MAXK), r) for k, r in mm])
+        mms.append(mm)
     return _combine(mesh, cnts, rids, sums, mms)
 
 

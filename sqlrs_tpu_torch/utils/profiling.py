@@ -111,6 +111,15 @@ class Recorder:
         finally:
             self.close(s)
 
+    def annotate(self, prefix: str, detail) -> None:
+        """Set the detail of the innermost open span whose name begins with
+        `prefix` (an operator's numbers that the operator's own span
+        carries)."""
+        for s in reversed(self._open):
+            if s.name.startswith(prefix):
+                s.detail = detail
+                return
+
     def statement(self, fn, /, *args):
         """fn(*args) inside a statement's root span, whose id is the
         statement id of every span inside it; inside an open statement,

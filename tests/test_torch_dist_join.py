@@ -9,6 +9,8 @@ the same overflow, hot-bucket count and m. Everything else is held to
 numpy: the ring-staged probe exchange against the monolithic one bit for
 bit, phase B's pairs and their order, `ring_agg_join` and
 `broadcast_agg_join` per dim row, and `pair_local_dedup`.
+`broadcast_agg_join` with a live capacity (the live dim rows compacted,
+over 4 shards) is held bit for bit to the call without one.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 from sqlrs_tpu.parallel import dist_join as ref_join
 from sqlrs_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from sqlrs_tpu.parallel.mesh import row_sharding
+from sqlrs_tpu_torch.ops.hash_table import next_pow2
 from sqlrs_tpu_torch.parallel import dist_join
 from sqlrs_tpu_torch.parallel.mesh import live_blocks, make_mesh, row_blocks, shard_positions
 
@@ -241,6 +244,108 @@ def test_agg_join_per_dim_row(mesh, fn, seed, chunk, monkeypatch):
         assert (got_c[g], got_s[g], got_x[g], got_r[g]) == (c, s, xs, r), g
         if c:
             assert (got_min[g], got_max[g]) == (lo, hi), g
+
+
+# ---- broadcast_agg_join's compaction of the live dim rows --------------------------
+
+N4 = 4
+
+
+@pytest.fixture(scope="module")
+def mesh4():
+    return make_mesh(N4, devices=["cpu"] * N4)
+
+
+def _compaction_case(live: str, nd: int = 4096, seed: int = 7):
+    """A fact side with NULL keys, dead rows and non-dyadic float values; a
+    dim side of nd rows with duplicate keys whose alive rows are `live`:
+    "none", "one", or "sparse" (about 5%, some with NULL keys)."""
+    rng = np.random.default_rng(seed)
+    nf = 3001
+    f_key = rng.integers(0, 400, nf).astype(np.int64)
+    f_ok = rng.random(nf) < 0.9
+    v = rng.integers(-100, 100, nf).astype(np.int64)
+    x = rng.random(nf) * 1e3 - 300.0
+    d_key = rng.integers(0, 450, nd).astype(np.int64)  # duplicates and misses
+    alive = np.zeros(nd, np.bool_)
+    if live == "one":
+        alive[nd // 3] = True
+    elif live == "sparse":
+        alive = rng.random(nd) < 0.05
+    d_kv = rng.random(nd) < 0.9  # NULL dim keys
+    return f_key, f_ok, v, x, d_key, alive, d_kv
+
+
+def _broadcast(mesh, case, capacity):
+    f_key, f_ok, v, x, d_key, alive, d_kv = case
+    nf, nd = len(f_key), len(d_key)
+    ok = [a & b for a, b in zip(_blocks(mesh, f_ok), live_blocks(mesh, nf))]
+    d_alive = [a & b for a, b in zip(_blocks(mesh, alive), live_blocks(mesh, nd))]
+    d_ok = [a & b for a, b in zip(d_alive, _blocks(mesh, d_kv))]
+    vb = _blocks(mesh, v)
+    out = dist_join.broadcast_agg_join(
+        mesh, _blocks(mesh, f_key), ok, shard_positions(mesh, -(-nf // mesh.size)),
+        [vb, _blocks(mesh, x)],
+        [([torch.where(o, b, I64_MAX) for o, b in zip(ok, vb)], vb),
+         ([torch.where(o, ~b, I64_MAX) for o, b in zip(ok, vb)], _blocks(mesh, x))],
+        _blocks(mesh, d_key), d_ok, capacity=capacity,
+    )
+    return out, torch.cat(d_ok).numpy()
+
+
+def _bits(t):
+    t = torch.cat(t) if isinstance(t, list) else t
+    return (t.view(torch.int64) if t.is_floating_point() else t).numpy()
+
+
+@pytest.mark.parametrize("live", ["none", "one", "sparse"])
+def test_broadcast_compaction_bit_equal(mesh4, live):
+    """With a live capacity, broadcast_agg_join answers only the live dim
+    rows (NULL keys and duplicate keys among them) and scatters the
+    answers back: counts, integer and float sums, first rowids and the
+    min/max keys bit-equal to the uncompacted call on every dim row, the
+    min/max raw values on every live row; the counter says compacted,
+    with the live capacity's queries on each shard."""
+    case = _compaction_case(live)
+    nd = len(case[4])
+    capacity = next_pow2(max(int(case[5].sum()), 1))
+    dist_join.reset_stats()
+    (c0, s0, r0, m0), _ = _broadcast(mesh4, case, None)
+    st = dist_join.stats().as_dict()
+    assert st == {"broadcast_calls": 1, "compacted_calls": 0, "gathered_rows": N4 * nd,
+                  "range_queries": N4 * nd}
+    dist_join.reset_stats()
+    (c1, s1, r1, m1), d_ok = _broadcast(mesh4, case, capacity)
+    st = dist_join.stats().as_dict()
+    assert st == {"broadcast_calls": 1, "compacted_calls": 1, "gathered_rows": N4 * nd,
+                  "range_queries": N4 * capacity}
+    assert capacity * 4 <= nd
+    for a, b in [(c0, c1), (r0, r1)] + list(zip(s0, s1)) + [
+            (k0, k1) for (_r0, k0), (_r1, k1) in zip(m0, m1)]:
+        assert np.array_equal(_bits(a), _bits(b))
+    for (raw0, _k0), (raw1, _k1) in zip(m0, m1):
+        assert np.array_equal(_bits(raw0)[d_ok], _bits(raw1)[d_ok])
+    got = _bits(c1)
+    assert got[~d_ok].sum() == 0
+    if live == "sparse":
+        assert got[d_ok].sum() > 0 and (got[d_ok] == 0).any()  # hits and misses
+
+
+def test_broadcast_compaction_gate(mesh4):
+    """A dim side too small for the gate (capacity x 4 above the gathered
+    rows) keeps the uncompacted path: the counter says not compacted, and
+    the answers are the uncapacitated call's."""
+    case = _compaction_case("sparse", nd=61)
+    case[5][:] = True
+    dist_join.reset_stats()
+    (c1, s1, r1, _m1), _ = _broadcast(mesh4, case, next_pow2(61))
+    st = dist_join.stats().as_dict()
+    g = N4 * (-(-61 // N4))
+    assert st == {"broadcast_calls": 1, "compacted_calls": 0, "gathered_rows": N4 * g,
+                  "range_queries": N4 * g}
+    (c0, s0, r0, _m0), _ = _broadcast(mesh4, case, None)
+    for a, b in [(c0, c1), (r0, r1)] + list(zip(s0, s1)):
+        assert np.array_equal(_bits(a), _bits(b))
 
 
 def test_pair_local_dedup(mesh):

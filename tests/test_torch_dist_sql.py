@@ -12,7 +12,9 @@ render identically in the three engines; a DOUBLE may differ at rel 1e-9
 (`last_join_strategies`) must hold the names the reference's tests assert;
 the slow-marked tests compare them with the reference's own sharded
 engine. All 22 TPC-H queries at SF 0.002 run over 8 shards and equal the
-port's single-device run by benchmarks/tpch.py's rule.
+port's single-device run by benchmarks/tpch.py's rule; Q12 alone has the
+broadcast-fused join compact its live dim rows, which on 4 shards passes
+the programs' capture checker.
 """
 
 import math
@@ -26,6 +28,7 @@ import sqlrs_tpu_torch
 from benchmarks import tpch
 from sqlrs_tpu_torch.benchmarks import tpch_dbgen as port_dbgen
 from sqlrs_tpu_torch.errors import ExecutorError
+from sqlrs_tpu_torch.parallel import dist_join
 
 N_DEV = 8
 
@@ -493,8 +496,50 @@ def tpch_dbs():
 
 @pytest.mark.parametrize("qn", range(1, 23))
 def test_tpch_query_sharded_matches_single_device(tpch_dbs, qn):
+    """Each query equals the one-device run; the broadcast-fused join
+    compacts its live dim rows in Q12 alone."""
     db8, db1 = tpch_dbs
+    dist_join.reset_stats()
     got = tpch.run_query(db8, qn)
+    assert dist_join.stats().compacted_calls == (qn == 12)
     exp = tpch.run_query(db1, qn)
     issues = tpch.compare(got, exp, qn)
     assert not issues, issues[:5]
+
+
+Q12_FILTER = ("l_shipmode in ('MAIL', 'SHIP') and l_commitdate < l_receiptdate"
+              " and l_shipdate < l_commitdate and l_receiptdate >= date '1994-01-01'"
+              " and l_receiptdate < date '1995-01-01'")
+
+
+def test_q12_compacts_the_live_dim_rows(tpch_dbs):
+    """TPC-H Q12's shape on 4 shards: orders joined to a lineitem that a
+    selective filter leaves about 0.5% alive, aggregated by a lineitem
+    column. The broadcast-fused join answers only the live lineitem rows
+    (one compacted call, 4 x C range queries for C the live rows' power of
+    two), its program reads nothing of the host, the rows equal the
+    one-device engine's, and the operator's span carries the counts."""
+    from sqlrs_tpu_torch.benchmarks.tpch_queries import Q12
+    from sqlrs_tpu_torch.ops.hash_table import next_pow2
+    from sqlrs_tpu_torch.utils import profiling, programs
+
+    _db8, db1 = tpch_dbs
+    db4 = sqlrs_tpu_torch.Database(n_devices=4, device="cpu")
+    port_dbgen.load_into(db4, port_dbgen.gen_tables(SF, seed=3))
+    (live,) = db1.run_lines(f"select count(*) from lineitem where {Q12_FILTER}")
+    capacity = next_pow2(int(live))
+    sql = Q12 + ";"
+    exp = db1.run_lines(sql)
+    for _ in range(2):
+        dist_join.reset_stats()
+        with programs.checking() as c, profiling.recording() as rec:
+            got = db4.run_lines(sql)
+        assert not c.refused, c.refused[:3]
+        assert c.by_program["sqlrs_tpu_torch.parallel.dist_join.broadcast_agg_join"] == 1
+        assert got == exp and len(exp) == 2
+        assert db4.last_join_strategies == ["broadcast_fused"]
+        st = dist_join.stats()
+        assert (st.broadcast_calls, st.compacted_calls) == (1, 1)
+        assert st.range_queries <= 4 * capacity < st.gathered_rows // 4
+        assert [s.detail for s in rec.spans() if s.name.startswith("dist:") and s.detail] \
+            == [st.as_dict()]
