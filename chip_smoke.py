@@ -1655,6 +1655,7 @@ DIST_FUNCTIONS = PROFILED_FUNCTIONS + (
     "parallel.dist_join.shuffle_join_phase_b", "parallel.dist_ops.dist_sort_rows",
     "parallel.dist_executor._grouped_partials", "parallel.dist_join._phase_a_stage",
     "parallel.dist_join._phase_b_stage", "parallel.dist_ops._sort_rows_stage",
+    "parallel.dist_join.broadcast_build", "parallel.dist_join.broadcast_probe",
 )
 
 

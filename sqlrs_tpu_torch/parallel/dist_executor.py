@@ -45,7 +45,7 @@ from sqlrs_tpu_torch.errors import ExecutorError
 from sqlrs_tpu_torch.exec.executor import Executor, _merge_rows, _schema
 from sqlrs_tpu_torch.exec.expression_executor import execute_expr, execute_exprs_fused
 from sqlrs_tpu_torch.ops import elementwise as ew
-from sqlrs_tpu_torch.parallel import collectives
+from sqlrs_tpu_torch.parallel import collectives, dist_join
 from sqlrs_tpu_torch.parallel.mesh import (
     live_blocks,
     replicate,
@@ -58,7 +58,6 @@ from sqlrs_tpu_torch.utils import profiling
 from sqlrs_tpu_torch.utils.programs import mesh_program
 
 _INT64_MAX = 2**63 - 1
-_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
 
 
 @dataclass
@@ -431,7 +430,6 @@ class DistributedExecutor:
         )
         from sqlrs_tpu_torch.ops.hash_table import next_pow2
         from sqlrs_tpu_torch.ops.sort import orderable_key
-        from sqlrs_tpu_torch.parallel import dist_join
         from sqlrs_tpu_torch.parallel.dist_join import broadcast_agg_join, ring_agg_join
 
         policy = getattr(self.db, "dist_join_policy", "auto")
@@ -666,8 +664,7 @@ class DistributedExecutor:
             )
         rec = profiling.RECORDER
         if rec is not None and not use_ring:
-            after = dist_join.stats().as_dict()
-            rec.annotate("dist:", {k: after[k] - before[k] for k in after})
+            rec.annotate("dist:", dist_join.stats().since(before))
 
         # ---- dim-sized partial batch + the distributed grouped agg ----------
         ng = len(groups)
@@ -1024,7 +1021,13 @@ class DistributedExecutor:
                 return out
         left = self._materialize(left_res)
         self._record_strategy("broadcast")
-        return self._hash_join_dist(op, left, right)
+        rec = profiling.RECORDER
+        if rec is None:
+            return self._hash_join_dist(op, left, right)
+        before = dist_join.stats().as_dict()
+        out = self._hash_join_dist(op, left, right)
+        rec.annotate("dist:", dist_join.stats().since(before))
+        return out
 
     def _record_strategy(self, name: str) -> None:
         """Append the chosen join strategy to db.last_join_strategies (reset
@@ -1220,129 +1223,51 @@ class DistributedExecutor:
         return out
 
     def _hash_join_dist(self, op, left: DeviceBatch, right: ShardedBatch):
-        """Broadcast-build distributed equi join:
-
-        - the build (left) side is replicated; the probe (right) side stays
-          row-sharded — no shuffle of the big side;
-        - each probe row owns a fixed strip of m match slots (m = the most
-          build rows sharing one key hash) plus, for right/full joins, one
-          unmatched-right slot; probe-row-major strips reproduce the
-          reference's probe-order emission (unmatched-right rows
-          interleaved at their probe position) EXACTLY, because sharding is
-          block-contiguous;
-        - candidates are the build rows whose combined key hash equals the
-          probe row's, in insertion order: the reference finds them through
-          its open-addressing table (ops/hash_table.build_join_table), the
-          port through the stably sorted build hashes — the same rows in the
-          same order. Every candidate is re-checked for exact equality on
-          all key columns;
-        - unmatched-left rows (left/full) come from a psum'd visited bitmap
-          and are appended as a part, last, as the reference does."""
-        from sqlrs_tpu_torch.ops.hash_table import _mix64
-
+        """Broadcast-build distributed equi join: the build (left) side is
+        replicated, the probe (right) side stays row-sharded, with no
+        shuffle of the big side. Two programs around one host read, m: the
+        build side's sorted hashes (`dist_join.broadcast_build`), then
+        every shard's probe strips (`dist_join.broadcast_probe`, which
+        states the join's contract). Unmatched-left rows (left/full) are
+        appended as a part, last, as the reference does."""
         mesh = self.mesh
         nl = left.num_rows
         cdev = left.device
         left_keys = execute_exprs_fused([lk for lk, _ in op.on], left)
         right_keys = self._eval([rk for _, rk in op.on], right)
-
-        def combined_hash(cols, n, dev):
-            h = torch.full((n,), _GOLDEN, dtype=torch.int64, device=dev)
-            valid = torch.ones(n, dtype=torch.bool, device=dev)
-            for c in cols:
-                h = _mix64(h ^ _mix64(_int64_bits(c)))
-                valid = valid & c.valid
-            return h, valid
-
-        cap_r = right.capacity
-        extra = 1 if op.join_type in ("right", "full") else 0
         if nl > 0:
-            bh, bvalid = combined_hash(left_keys, nl, cdev)
-            # NULL-key build rows never match: give each a spread decoy hash
-            # (collisions are harmless — the exact re-check rejects them)
-            decoy = _mix64(torch.arange(nl, dtype=torch.int64, device=cdev) + 7)
-            bh = torch.where(bvalid, bh, decoy)
-            sorted_bh, order = torch.sort(bh, stable=True)
-            run = (
-                torch.searchsorted(sorted_bh, sorted_bh, right=True)
-                - torch.searchsorted(sorted_bh, sorted_bh)
+            sorted_bh, order, bits, run_max = dist_join.broadcast_build(
+                [(c.data, c.valid) for c in left_keys], nl, cdev
             )
-            m = int(run.max())
+            m = int(run_max)
         else:
             m = 0
-        w = max(m, 1) + extra
-        if nl == 0 or m > self._JOIN_MAX_DUP or cap_r * w > self._JOIN_MAX_CELLS:
+        w = max(m, 1) + (1 if op.join_type in ("right", "full") else 0)
+        if nl == 0 or m > self._JOIN_MAX_DUP or right.capacity * w > self._JOIN_MAX_CELLS:
+            dist_join.stats().probe_delegated += 1
             cache = {id(op.children[0]): left, id(op.children[1]): right.to_device_batch()}
             return _DelegatingExecutor(self.db, cache).execute(op)
 
-        sbh = replicate(mesh, sorted_bh)
-        order_r = replicate(mesh, order)
-        lcols = [(replicate(mesh, c.data), replicate(mesh, c.valid)) for c in left.columns]
-        lkeys_r = [
-            (replicate(mesh, _int64_bits(c)), replicate(mesh, c.valid)) for c in left_keys
-        ]
-        cols = [[] for _ in range(len(left.columns) + len(right.columns))]
-        alive_out, visited, rowid_out = [], [], []
-        for s, dev in enumerate(mesh.devices):
-            rview = right.view(s)
-            rk = [c[s] for c in right_keys]
-            n_loc = right.local
-            ph, pvalid = combined_hash(rk, n_loc, dev)
-            lo = torch.searchsorted(sbh[s], ph)
-            counts = torch.searchsorted(sbh[s], ph, right=True) - lo
-            probe_ok = right.alive[s] & pvalid & (counts > 0)
-            j = torch.arange(m, dtype=torch.int64, device=dev)  # slot strip of a probe row
-            cand = order_r[s][torch.clamp(lo[:, None] + j[None, :], 0, nl - 1)]
-            have = probe_ok[:, None] & (j[None, :] < counts[:, None])
-            # exact key equality re-check on every candidate
-            for (lbits, lvalid), c in zip(lkeys_r, rk):
-                have = have & lvalid[s][cand] & c.valid[:, None]
-                have = have & (lbits[s][cand] == _int64_bits(c)[:, None])
-            if extra:
-                cand = torch.cat([cand, torch.zeros((n_loc, extra), dtype=cand.dtype, device=dev)], 1)
-                have = torch.cat([have, torch.zeros((n_loc, extra), dtype=torch.bool, device=dev)], 1)
-            cand_flat = cand.reshape(-1)
-            match_flat = have.reshape(-1)
-            merged = [
-                Column(lc.type, d[s][cand_flat], v[s][cand_flat] & match_flat)
-                for (d, v), lc in zip(lcols, left.columns)
-            ] + [
-                Column(c.type, torch.repeat_interleave(c.data, w),
-                       torch.repeat_interleave(c.valid, w))
-                for c in rview.columns
-            ]
-            alive = match_flat
-            if op.filter is not None:
-                keep = execute_expr(op.filter, DeviceBatch(_schema(op), merged, n_loc * w, dev))
-                alive = alive & keep.data & keep.valid
-            if extra:
-                has_match = alive.view(n_loc, w).any(1)
-                ur = right.alive[s] & torch.logical_not(has_match)  # unmatched right rows
-                ur_flat = torch.cat(
-                    [torch.zeros((n_loc, m), dtype=torch.bool, device=dev), ur[:, None]], 1
-                ).reshape(-1)
-                alive = alive | ur_flat
-            if op.join_type in ("left", "full"):
-                visited.append(torch.zeros(nl + 1, dtype=torch.int32, device=dev).index_add_(
-                    0, torch.where(alive & match_flat, cand_flat, nl),
-                    torch.ones_like(cand_flat, dtype=torch.int32),
-                )[:nl])
-            # probe-major strips keep position order; a scrambled probe side
-            # (rowid set) gives the output's logical order (probe rowid, slot)
-            if right.rowid is not None:
-                rowid_out.append((
-                    right.rowid[s][:, None] * w
-                    + torch.arange(w, dtype=torch.int64, device=dev)[None, :]
-                ).reshape(-1))
-            for i, c in enumerate(merged):
-                cols[i].append(c)
-            alive_out.append(alive)
-        out = ShardedBatch(
-            _schema(op), cols, alive_out, mesh, rowid=rowid_out if right.rowid is not None else None
+        types = tuple(c.type for c in left.columns) + tuple(c[0].type for c in right.columns)
+        # a probe column repeated once is the column itself: with one slot a
+        # probe row and no residual to read them, the probe columns stay out
+        # of the stage (its input copy and outputs)
+        carried = right.columns if w > 1 or op.filter is not None else []
+        cells, alive, rowid, unseen = dist_join.broadcast_probe(
+            mesh, sorted_bh, order,
+            [(c.data, c.valid) for c in left.columns],
+            [(b, c.valid) for b, c in zip(bits, left_keys)],
+            [[(x.data, x.valid) for x in c] for c in carried],
+            [[(x.data, x.valid) for x in c] for c in right_keys],
+            right.alive, right.rowid,
+            types=types, join_type=op.join_type, m=m, residual=op.filter,
         )
-        if op.join_type in ("left", "full"):
-            seen = collectives.reduce_sum(mesh, visited).to(cdev)
-            unmatched = torch.nonzero(seen == 0).reshape(-1)
+        cols = [[Column(t, d, v) for d, v in c] for t, c in zip(types, cells)]
+        if not carried:
+            cols += [list(c) for c in right.columns]
+        out = ShardedBatch(_schema(op), cols, alive, mesh, rowid=rowid)
+        if unseen is not None:
+            unmatched = torch.nonzero(unseen.to(cdev)).reshape(-1)
             if len(unmatched):
                 empty_r = DeviceBatch.empty(right.schema, device=cdev)
                 out.parts.append(_merge_rows(
@@ -1460,19 +1385,6 @@ def _mm_key(enc):
 
         return _float_order_key(enc.to(torch.float64))
     return enc.to(torch.int64)
-
-
-def _int64_bits(c: Column):
-    """Equality/hash bit view of a column's data as int64 (floats by their
-    bits with -0.0 normalized so SQL 0 = -0 holds)."""
-    data = c.data
-    if data.dtype == torch.float64:
-        data = torch.where(data == 0, torch.zeros_like(data), data)
-        return data.view(torch.int64)
-    if data.dtype == torch.float32:
-        data = torch.where(data == 0, torch.zeros_like(data), data)
-        return data.view(torch.int32).to(torch.int64)
-    return data.to(torch.int64)
 
 
 class _DelegatingExecutor(Executor):

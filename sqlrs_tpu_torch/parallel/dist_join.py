@@ -36,25 +36,39 @@ ring_agg_join, broadcast_agg_join, pair_local_dedup) is one program here
 (`utils/programs.mesh_program`, one CUDA graph over every shard on a
 one-card, one-process mesh; see parallel/dist_ops.py). Phase A's program
 ends where the reference's does, at the one host read, which its caller
-makes. The reference's scan bodies become Python loops over ring steps,
-each over the shards; the `_varying` vma alignment of its ring probe (a
-shard_map type check) has nothing to port. A sharded array is a list of
-per-shard tensors (parallel/dist_ops.py).
+makes. The broadcast hash join, which the reference runs per op, is two
+programs here around its one host read (m): `broadcast_build` on the
+controller's device, then the stage `broadcast_probe`. The reference's
+scan bodies become Python loops over ring steps, each over the shards;
+the `_varying` vma alignment of its ring probe (a shard_map type check)
+has nothing to port. A sharded array is a list of per-shard tensors
+(parallel/dist_ops.py).
 """
 
 from __future__ import annotations
 
+import functools
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
 
+from sqlrs_tpu_torch.data import Column
+from sqlrs_tpu_torch.exec.expression_executor import _host_work, _Rows, execute_expr
 from sqlrs_tpu_torch.ops.fused import _compact_index_body, prefix_sum
 from sqlrs_tpu_torch.ops.hash_table import _mix64, umod
 from sqlrs_tpu_torch.ops.join import _pairs_phase_a
 from sqlrs_tpu_torch.ops.sort import _lex_argsort
 from sqlrs_tpu_torch.parallel import collectives, dist_ops
 from sqlrs_tpu_torch.parallel.dist_ops import _bucketize_rows, _exchange_rows
-from sqlrs_tpu_torch.utils.programs import MeshProgram, mesh_program
+from sqlrs_tpu_torch.parallel.mesh import replicate
+from sqlrs_tpu_torch.utils.programs import (
+    MeshProgram,
+    mesh_eager_reason,
+    mesh_program,
+    program,
+    route_eagerly,
+)
 
 _N_BUCKETS = 4096
 _BLK = 128
@@ -515,17 +529,38 @@ def ring_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_ok):
 
 
 class Stats:
-    """What `broadcast_agg_join` did in this process, as host integers read
-    from shapes alone (reset by `reset_stats`)."""
+    """What the broadcast joins did in this process, as host integers read
+    from shapes alone (reset by `reset_stats`): `broadcast_agg_join`'s
+    calls and `broadcast_probe`'s."""
 
     def __init__(self) -> None:
         self.broadcast_calls = 0  # calls of broadcast_agg_join
         self.compacted_calls = 0  # of them, the calls that compacted the dim rows
         self.gathered_rows = 0    # dim rows gathered onto this process's shards
         self.range_queries = 0    # range queries those shards answered
+        self.probe_calls = 0      # calls of broadcast_probe (the broadcast hash join)
+        self.probe_staged = 0     # of them, the calls run as its stage program
+        self.probe_eager: Counter = Counter()  # reason -> calls routed eagerly
+        # broadcast hash joins delegated to one device before the probe (an
+        # empty build side, m or the strip past the executor's guardrails)
+        self.probe_delegated = 0
 
     def as_dict(self) -> dict:
-        return dict(vars(self))
+        d = dict(vars(self))
+        d["probe_eager"] = dict(self.probe_eager)
+        return d
+
+    def since(self, before: dict) -> dict:
+        """What each count moved since `before` (an earlier `as_dict()`):
+        one operator's counts, for its span."""
+        out = {}
+        for k, v in self.as_dict().items():
+            if isinstance(v, dict):
+                out[k] = {r: n - before[k].get(r, 0) for r, n in v.items()
+                          if n != before[k].get(r, 0)}
+            else:
+                out[k] = v - before[k]
+        return out
 
 
 _STATS = Stats()
@@ -618,6 +653,177 @@ def broadcast_agg_join(mesh, f_enc, f_ok, f_rowid, sum_cols, mm_specs, d_enc, d_
         sums.append(sm)
         mms.append(mm)
     return _combine(mesh, cnts, rids, sums, mms)
+
+
+# ---- the broadcast hash join ------------------------------------------------------
+
+
+def _key_bits(data):
+    """Equality/hash bit view of a key column's data as int64 (floats by
+    their bits with -0.0 normalized so SQL 0 = -0 holds)."""
+    if data.dtype == torch.float64:
+        data = torch.where(data == 0, torch.zeros_like(data), data)
+        return data.view(torch.int64)
+    if data.dtype == torch.float32:
+        data = torch.where(data == 0, torch.zeros_like(data), data)
+        return data.view(torch.int32).to(torch.int64)
+    return data.to(torch.int64)
+
+
+def _key_hash(bits, valids, n: int, dev):
+    """Each row's combined hash of its key bits, and whether every key of
+    the row is valid."""
+    h = torch.full((n,), _GOLDEN, dtype=torch.int64, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    for b, v in zip(bits, valids):
+        h = _mix64(h ^ _mix64(b))
+        valid = valid & v
+    return h, valid
+
+
+@program
+def broadcast_build(keys, n: int, device):
+    """The broadcast hash join's build side as one program: each key
+    column's bits (`keys` holds each key's (data, valid)), the n build
+    rows' combined key hashes, stably sorted, with the rows' positions in
+    that order, and the longest run of one hash (m) as a device scalar,
+    which the caller reads. A NULL-key build row never matches: it gets a
+    spread decoy hash (collisions are harmless, the probe's exact re-check
+    rejects them)."""
+    bits = [_key_bits(d) for d, _v in keys]
+    bh, valid = _key_hash(bits, [v for _d, v in keys], n, device)
+    decoy = _mix64(torch.arange(n, dtype=torch.int64, device=device) + 7)
+    sorted_bh, order = torch.sort(torch.where(valid, bh, decoy), stable=True)
+    run = (
+        torch.searchsorted(sorted_bh, sorted_bh, right=True)
+        - torch.searchsorted(sorted_bh, sorted_bh)
+    )
+    return sorted_bh, order, bits, run.max()
+
+
+class _ProbeProgram(MeshProgram):
+    """broadcast_probe's program and its host side: the route, decided
+    before the call from the mesh's placement and the residual filter
+    (eager, its reason counted, where either would not make one graph),
+    the residual's repr in the key, and the counts of `stats()`."""
+
+    def __call__(self, mesh, *args, residual=None, **kwargs):
+        why = mesh_eager_reason(mesh)
+        if why is None and residual is not None:
+            why = _host_work([residual], mesh.devices[0])
+        fn = functools.partial(self.fn, residual=residual)
+        _STATS.probe_calls += 1
+        if why is not None:
+            _STATS.probe_eager[why] += 1
+            route_eagerly(why)
+            return fn(mesh, *args, **kwargs)
+        _STATS.probe_staged += 1
+        return self.staged(mesh, fn, (repr(residual),), args, kwargs)
+
+
+def _probe_program(fn):
+    return _ProbeProgram(fn, f"{fn.__module__}.{fn.__qualname__}")
+
+
+@_probe_program
+def broadcast_probe(mesh, sorted_bh, order, b_cols, b_keys, p_cols, p_keys, p_alive, p_rowid,
+                    *, types: tuple, join_type: str, m: int, residual=None):
+    """The broadcast hash join's probe over every shard as one program,
+    the build side's replication and the visited bitmap's psum inside it
+    (the reference runs this join per op):
+
+    - the build side is replicated to every shard: its stably sorted
+      hashes and their row order (`broadcast_build`), its columns `b_cols`
+      and key bits `b_keys`, each a (data, valid) pair; the probe side
+      stays row-sharded: `p_cols` (the probe columns to repeat into the
+      strips, which a caller with one slot a probe row and no residual
+      keeps out) and `p_keys` hold a (data, valid) pair a shard, `p_alive`
+      and `p_rowid` a tensor a shard (p_rowid None: position order);
+    - each probe row owns a fixed strip of m match slots (m the longest
+      run of one build hash) plus, for right/full joins, one
+      unmatched-right slot; probe-row-major strips reproduce the
+      reference's probe-order emission (unmatched-right rows at their
+      probe position) exactly, because sharding is block-contiguous;
+    - candidates are the build rows whose combined key hash equals the
+      probe row's, in insertion order: the reference finds them through
+      its open-addressing table (ops/hash_table.build_join_table), the
+      port through the stably sorted build hashes, the same rows in the
+      same order. Every candidate is re-checked for exact equality on all
+      key columns, and the `residual` filter (over the output columns, of
+      `types`) clears the slots it rejects.
+
+    Returns each output column's (data, valid) a shard (the build
+    columns', then p_cols'), each shard's alive slots, each shard's output
+    rowid (probe rowid * w + slot for w slots a row; None without
+    p_rowid), and for left/full joins the mask of build rows that no shard
+    matched (on the first shard's device, else None), which the caller
+    appends last, as the reference does."""
+    nl = order.shape[0]
+    extra = 1 if join_type in ("right", "full") else 0
+    w = m + extra
+    sbh = replicate(mesh, sorted_bh)
+    order_r = replicate(mesh, order)
+    lcols = [(replicate(mesh, d), replicate(mesh, v)) for d, v in b_cols]
+    lkeys = [(replicate(mesh, b), replicate(mesh, v)) for b, v in b_keys]
+    cells = [[] for _ in range(len(b_cols) + len(p_cols))]
+    alive_out, visited, rowid_out = [], [], []
+    for s, dev in enumerate(mesh.devices):
+        n_loc = p_alive[s].shape[0]
+        pk = [k[s] for k in p_keys]
+        pbits = [_key_bits(d) for d, _v in pk]
+        ph, pvalid = _key_hash(pbits, [v for _d, v in pk], n_loc, dev)
+        lo = torch.searchsorted(sbh[s], ph)
+        counts = torch.searchsorted(sbh[s], ph, right=True) - lo
+        probe_ok = p_alive[s] & pvalid & (counts > 0)
+        j = torch.arange(m, dtype=torch.int64, device=dev)  # slot strip of a probe row
+        cand = order_r[s][torch.clamp(lo[:, None] + j[None, :], 0, nl - 1)]
+        have = probe_ok[:, None] & (j[None, :] < counts[:, None])
+        # exact key equality re-check on every candidate
+        for (lbits, lvalid), pb, (_d, pv) in zip(lkeys, pbits, pk):
+            have = have & lvalid[s][cand] & pv[:, None]
+            have = have & (lbits[s][cand] == pb[:, None])
+        if extra:
+            cand = torch.cat([cand, torch.zeros((n_loc, extra), dtype=cand.dtype, device=dev)], 1)
+            have = torch.cat([have, torch.zeros((n_loc, extra), dtype=torch.bool, device=dev)], 1)
+        cand_flat = cand.reshape(-1)
+        match_flat = have.reshape(-1)
+        # build columns gather through the candidates; probe columns repeat
+        # w times, as a broadcast (repeat_interleave would read the host)
+        merged = [(d[s][cand_flat], v[s][cand_flat] & match_flat) for d, v in lcols] + [
+            (d[:, None].expand(-1, w).reshape(-1), v[:, None].expand(-1, w).reshape(-1))
+            for d, v in (c[s] for c in p_cols)
+        ]
+        alive = match_flat
+        if residual is not None:
+            rows = _Rows([Column(t, d, v) for t, (d, v) in zip(types, merged)], n_loc * w, dev)
+            keep = execute_expr(residual, rows)
+            alive = alive & keep.data & keep.valid
+        if extra:
+            has_match = alive.view(n_loc, w).any(1)
+            ur = p_alive[s] & torch.logical_not(has_match)  # unmatched right rows
+            ur_flat = torch.cat(
+                [torch.zeros((n_loc, m), dtype=torch.bool, device=dev), ur[:, None]], 1
+            ).reshape(-1)
+            alive = alive | ur_flat
+        if join_type in ("left", "full"):
+            visited.append(torch.zeros(nl + 1, dtype=torch.int32, device=dev).index_add_(
+                0, torch.where(alive & match_flat, cand_flat, nl),
+                torch.ones_like(cand_flat, dtype=torch.int32),
+            )[:nl])
+        # probe-major strips keep position order; a scrambled probe side
+        # (rowid set) gives the output's logical order (probe rowid, slot)
+        if p_rowid is not None:
+            rowid_out.append((
+                p_rowid[s][:, None] * w
+                + torch.arange(w, dtype=torch.int64, device=dev)[None, :]
+            ).reshape(-1))
+        for i, c in enumerate(merged):
+            cells[i].append(c)
+        alive_out.append(alive)
+    unseen = None
+    if join_type in ("left", "full"):
+        unseen = collectives.reduce_sum(mesh, visited) == 0
+    return cells, alive_out, rowid_out if p_rowid is not None else None, unseen
 
 
 @mesh_program

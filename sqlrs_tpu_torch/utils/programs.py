@@ -761,8 +761,15 @@ class MeshProgram(Program):
         if why is not None:
             route_eagerly(why)
             return self.fn(mesh, *args, **kwargs)
-        extra = mesh_key(mesh) + (self.extra() if self.extra is not None else ())
-        return _call(self.name, functools.partial(self.fn, mesh), args, kwargs, extra)
+        return self.staged(mesh, self.fn, (), args, kwargs)
+
+    def staged(self, mesh, fn, key: tuple, args, kwargs):
+        """`fn(mesh, *args, **kwargs)` as this stage's program over a mesh
+        that `mesh_eager_reason` lets through. `key` (hashable) joins the
+        stage's key: with the arguments it must determine what fn does
+        (a closure's expression keys on its repr)."""
+        extra = mesh_key(mesh) + (self.extra() if self.extra is not None else ()) + key
+        return _call(self.name, functools.partial(fn, mesh), args, kwargs, extra)
 
 
 def mesh_program(fn=None, *, extra=None):

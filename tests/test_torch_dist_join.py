@@ -249,6 +249,8 @@ def test_agg_join_per_dim_row(mesh, fn, seed, chunk, monkeypatch):
 # ---- broadcast_agg_join's compaction of the live dim rows --------------------------
 
 N4 = 4
+NO_PROBE = {"probe_calls": 0, "probe_staged": 0, "probe_eager": {},  # no hash join here
+            "probe_delegated": 0}
 
 
 @pytest.fixture(scope="module")
@@ -313,12 +315,12 @@ def test_broadcast_compaction_bit_equal(mesh4, live):
     (c0, s0, r0, m0), _ = _broadcast(mesh4, case, None)
     st = dist_join.stats().as_dict()
     assert st == {"broadcast_calls": 1, "compacted_calls": 0, "gathered_rows": N4 * nd,
-                  "range_queries": N4 * nd}
+                  "range_queries": N4 * nd, **NO_PROBE}
     dist_join.reset_stats()
     (c1, s1, r1, m1), d_ok = _broadcast(mesh4, case, capacity)
     st = dist_join.stats().as_dict()
     assert st == {"broadcast_calls": 1, "compacted_calls": 1, "gathered_rows": N4 * nd,
-                  "range_queries": N4 * capacity}
+                  "range_queries": N4 * capacity, **NO_PROBE}
     assert capacity * 4 <= nd
     for a, b in [(c0, c1), (r0, r1)] + list(zip(s0, s1)) + [
             (k0, k1) for (_r0, k0), (_r1, k1) in zip(m0, m1)]:
@@ -342,7 +344,7 @@ def test_broadcast_compaction_gate(mesh4):
     st = dist_join.stats().as_dict()
     g = N4 * (-(-61 // N4))
     assert st == {"broadcast_calls": 1, "compacted_calls": 0, "gathered_rows": N4 * g,
-                  "range_queries": N4 * g}
+                  "range_queries": N4 * g, **NO_PROBE}
     (c0, s0, r0, _m0), _ = _broadcast(mesh4, case, None)
     for a, b in [(c0, c1), (r0, r1)] + list(zip(s0, s1)):
         assert np.array_equal(_bits(a), _bits(b))

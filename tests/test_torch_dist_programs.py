@@ -19,7 +19,11 @@ graph. Here a program is its function, and:
   equals numpy exactly;
 - a process-group mesh and a mesh over two devices run a stage eagerly,
   with the reason counted, decided before the call;
-- two meshes never share a signature.
+- two meshes never share a signature;
+- the broadcast hash join's probe, a stage of the port's own (the
+  reference runs that join per op), is one program a join for every join
+  type, and TPC-H Q5's joins make 0 eager ops inside `_hash_join_dist`
+  (3,253 before it).
 """
 
 import numpy as np
@@ -69,6 +73,12 @@ STAGES = {
     "dist_join.broadcast_agg_join": "sqlrs_tpu/parallel/dist_join.py:752",
     "dist_join.pair_local_dedup": "sqlrs_tpu/parallel/dist_join.py:786",
     "dist_executor._grouped_partials": "sqlrs_tpu/parallel/dist_executor.py:960",
+}
+
+
+# the port's stages with no reference shard_map, and why, as their docstrings say
+PORT_STAGES = {
+    "dist_join.broadcast_probe": "the reference runs this join per op",
 }
 
 
@@ -301,6 +311,150 @@ def test_each_reference_program_is_one_stage_program(stage):
     assert STAGES[stage] in " ".join(fn.__doc__.split())
 
 
+@pytest.mark.parametrize("stage", list(PORT_STAGES))
+def test_each_port_only_stage_is_one_stage_program(stage):
+    """A stage of the port's own, beside the reference's 13: one mesh
+    program, whose docstring says why the reference has none."""
+    import importlib
+
+    mod, name = stage.split(".")
+    fn = getattr(importlib.import_module(f"sqlrs_tpu_torch.parallel.{mod}"), name)
+    assert isinstance(fn, programs.MeshProgram)
+    assert fn.name == f"sqlrs_tpu_torch.parallel.{stage}"
+    assert PORT_STAGES[stage] in " ".join(fn.__doc__.split())
+
+
+# ---- the broadcast hash join's probe stage ------------------------------------------------
+
+PROBE = "sqlrs_tpu_torch.parallel.dist_join.broadcast_probe"
+
+
+def _join_tables():
+    """A build side b of 40 rows whose keys k repeat (m > 1), with NULL
+    keys, and a unique key id; a probe side p of 301 rows with misses and
+    NULL keys (the blocks carry padding); p.v is BIGINT, for a residual's
+    narrowing cast."""
+    rng = np.random.default_rng(23)
+
+    def key(i, hi):
+        return "NULL" if i % 13 == 0 else str(int(rng.integers(0, hi)))
+
+    b = ",".join(f"({key(i, 25)},{i % 3},{int(rng.integers(-5, 5))},{int(rng.integers(-8, 8)) / 2},"
+                 f"{39 - i})" for i in range(40))
+    p = ",".join(f"({key(i + 5, 30)},{i % 4},{int(rng.integers(-5, 5))},{int(rng.integers(-8, 8)) / 2})"
+                 for i in range(301))
+    return ["create table b(k int, k2 int, a int, x double, id int)",
+            "create table p(k int, k2 int, v bigint, y double)",
+            f"insert into b values {b}", f"insert into p values {p}"]
+
+
+# (SQL, probe stage calls, calls routed eagerly by reason)
+JOINS = {
+    "inner_dup_null_keys": ("select b.k, b.a, p.v from b join p on b.k = p.k", 1, {}),
+    # one slot a probe row: the probe columns stay out of the stage
+    "inner_unique_key": ("select b.id, b.a, p.k, p.v, p.y from b join p on b.id = p.k", 1, {}),
+    "left": ("select b.k, b.a, p.v, p.y from b left join p on b.k = p.k", 1, {}),
+    "right_two_keys": ("select b.a, b.x, p.k, p.v from b right join p "
+                       "on b.k = p.k and b.k2 = p.k2", 1, {}),
+    "full_double_key": ("select b.k, b.x, p.k, p.y from b full join p on b.x = p.y", 1, {}),
+    "residual": ("select b.k, b.a, p.v from b join p on b.k = p.k and b.a < p.v", 1, {}),
+    "residual_on_host": ("select b.k, b.a, p.v from b left join p "
+                         "on b.k = p.k and cast(p.v as int) > b.a", 0,
+                         {"checked narrowing cast": 1}),
+    "empty_build": ("select s.a, p.v from (select * from b where b.a > 100) s join p "
+                    "on s.k = p.k", 0, {}),
+    # the probe side is a shuffle join's output: scrambled rows, rowid set
+    "rowid_probe": ("select b.a, s.v, s.w from b right join (select p.k, p.v, q.v as w "
+                    "from p join p q on p.k = q.k2) s on b.k = s.k", 1, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def join_dbs():
+    dbs = {}
+    for name, kw in (("one", {}), ("auto", {"n_devices": N_DEV}),
+                     ("shuffle", {"n_devices": N_DEV})):
+        db = sqlrs_tpu_torch.Database(device="cpu", **kw)
+        for stmt in _join_tables():
+            db.run(stmt)
+        dbs[name] = db
+    dbs["shuffle"].dist_join_policy = "shuffle"
+    return dbs
+
+
+@pytest.mark.parametrize("case", list(JOINS))
+def test_broadcast_join_probe_stage(join_dbs, case, monkeypatch):
+    """Each join type, NULL and repeated keys (m > 1), a unique key (m = 1,
+    the probe columns kept out of the stage), two keys, a DOUBLE key, a
+    residual, a probe side with rowids: one probe stage call a join, no
+    body refused under checking() and emulating(), the rows (and their
+    order) those of SQLRS_TPU_FUSE=0 and of the one-device engine. A
+    residual that reads the host runs eagerly, its reason counted; an
+    empty build side delegates before the stage, as it did."""
+    sql, calls, eager = JOINS[case]
+    db = join_dbs["shuffle" if case == "rowid_probe" else "auto"]
+    seen = []
+    probe = dist_join.broadcast_probe
+
+    def spy(mesh, *args, **kw):
+        seen.append((args[7] is not None, kw["m"], len(args[4])))  # p_rowid, m, p_cols
+        return probe(mesh, *args, **kw)
+
+    monkeypatch.setattr(dist_join, "broadcast_probe", spy)
+    dist_join.reset_stats()
+    want, c = _held(lambda: db.run_lines(sql), monkeypatch)
+    assert want == join_dbs["one"].run_lines(sql)
+    assert bool(want) == (case != "empty_build")
+    assert c.by_program[PROBE] == calls
+    st = dist_join.stats()
+    # the off run, the checked and emulated run and the checked run
+    assert (st.probe_calls, st.probe_staged, dict(st.probe_eager), st.probe_delegated) == (
+        3 * (calls + sum(eager.values())), 3 * calls, {r: 3 * n for r, n in eager.items()},
+        3 * (case == "empty_build"))
+    assert c.eager_routed == eager
+    assert len(seen) == 3 * (calls + len(eager))
+    for rowid, m, carried in seen:
+        assert rowid == (case == "rowid_probe")
+        assert (m == 1) == (case == "inner_unique_key") == (carried == 0)
+
+
+def test_q5_broadcast_joins_are_stage_calls(dist_dbs, monkeypatch):
+    """TPC-H Q5 over 4 CPU shards at SF 0.002, seed 3: its 5 broadcast
+    joins are 5 probe stage calls, and the eager ops made inside
+    `_hash_join_dist` fall from 3,253 (the per-shard Python loop this
+    stage replaced, counted the same way) to 0 here: at least 85% fewer.
+    `dist_join.stats()` and each `dist:HashJoin` span's detail agree."""
+    from sqlrs_tpu_torch.parallel.dist_executor import DistributedExecutor
+    from sqlrs_tpu_torch.utils import profiling
+
+    db = dist_dbs["auto"]
+    tpch.run_query(db, 5)
+    inside = []
+    orig = DistributedExecutor._hash_join_dist
+
+    def counted(self, *args):
+        n0 = programs._CHECKER.eager_ops
+        try:
+            return orig(self, *args)
+        finally:
+            inside.append(programs._CHECKER.eager_ops - n0)
+
+    monkeypatch.setattr(DistributedExecutor, "_hash_join_dist", counted)
+    dist_join.reset_stats()
+    with profiling.recording() as rec:
+        c, _ = _checked(lambda: tpch.run_query(db, 5), emulate=False)
+    assert len(inside) == db.last_join_strategies.count("broadcast") == 5
+    assert sum(inside) <= 0.15 * 3253
+    assert c.by_program[PROBE] == 5
+    st = dist_join.stats()
+    assert (st.probe_calls, st.probe_staged, dict(st.probe_eager), st.probe_delegated) == (
+        5, 5, {}, 0)
+    details = [s.detail for s in rec.spans() if s.name.startswith("dist:HashJoin") and s.detail]
+    assert len(details) == 5
+    assert all((d["probe_calls"], d["probe_staged"], d["probe_eager"]) == (1, 1, {})
+               for d in details)
+
+
 # ---- routing: a predicate before the call, the reason counted ----------------------------
 
 
@@ -319,6 +473,39 @@ def test_process_group_and_two_device_meshes_route_eagerly():
         assert c.programs == 0 and not c.refused
         assert c.eager_routed == {reason: 1}
         assert programs.stats.eager_routed == {reason: 1}
+        assert repr(got) == repr(want)
+    programs.reset_stats()
+
+
+def test_probe_stage_routes_eagerly_off_one_device():
+    """The broadcast join's probe stage over a process-group mesh and a
+    mesh over two devices: its body eagerly, the reason counted in
+    programs.stats and dist_join.stats(), the rows of the one-device
+    mesh's stage."""
+    from sqlrs_tpu_torch.types import LogicalType
+
+    cpu = torch.device("cpu")
+    bk = torch.tensor([3, 1, 3, 2, 7])
+    bv = torch.tensor([True, True, True, False, True])
+    sorted_bh, order, bits, run_max = dist_join.broadcast_build([(bk, bv)], 5, cpu)
+    pk = [torch.tensor([3, 2, 9, 1]), torch.tensor([7, 3, 0, 3])]
+    pv = [torch.ones(4, dtype=torch.bool)] * 2
+    probe = [[(k, v) for k, v in zip(pk, pv)]]
+    args = (sorted_bh, order, [(bk, bv)], [(bits[0], bv)], probe, probe, pv, None)
+    kw = dict(types=(LogicalType.BIGINT,) * 2, join_type="inner", m=int(run_max))
+    want = dist_join.broadcast_probe(make_mesh(2, devices=["cpu"] * 2), *args, **kw)
+    assert int(run_max) == 2 and int(torch.cat(want[1]).sum()) == 8
+    for mesh, reason in (
+        (Mesh(["cpu"] * 2, group=object()), "process-group mesh"),
+        (Mesh(["cpu", "cpu:0"]), "shards on more than one device"),
+    ):
+        programs.reset_stats()
+        dist_join.reset_stats()
+        with programs.checking() as c:
+            got = dist_join.broadcast_probe(mesh, *args, **kw)
+        assert c.programs == 0 and not c.refused
+        assert c.eager_routed == {reason: 1} == programs.stats.eager_routed
+        assert dist_join.stats().probe_eager == {reason: 1}
         assert repr(got) == repr(want)
     programs.reset_stats()
 
